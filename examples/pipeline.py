@@ -1,6 +1,6 @@
 """End-to-end production pipeline: train → persist → stream-encode → search.
 
-A template for the full serving lifecycle on one TPU host:
+A template for the full serving lifecycle on one GPU host:
 
 1. generate (or mmap) an fvecs corpus through the native IO runtime;
 2. train an optimized product quantizer at corpus scale (chunked
@@ -55,10 +55,14 @@ def main() -> None:
 
     from reductive_tpu import io, train_opq_chunked, train_pq_chunked
     from reductive_tpu.data import stream_encode
+    from reductive_tpu.dispatch import use_kernel
+    from reductive_tpu.utils import enable_compile_cache
     from reductive_tpu.native import VecsReader, write_fvecs
     from reductive_tpu.search import search
 
-    on_tpu = jax.devices()[0].platform != "cpu"
+    enable_compile_cache()
+    # Every entry point below leaves use_kernel at its default, so the
+    # library picks the GPU kernels on a GPU and plain XLA elsewhere.
     print(f"platform: {jax.devices()[0].platform}")
 
     with tempfile.TemporaryDirectory() as td:
@@ -68,7 +72,7 @@ def main() -> None:
         data = rng.standard_normal((args.n, args.d)).astype(np.float32)
         write_fvecs(corpus_path, data)
 
-        # 2. corpus-scale training (fused assign+stats kernel on TPU).
+        # 2. corpus-scale training (encode kernel assigns on a GPU).
         # Long jobs checkpoint every few iterations — a killed run resumes
         # from the artifact via initial_model= (OPQ) losing at most that
         # many alternations.
@@ -78,8 +82,6 @@ def main() -> None:
         t0 = time.perf_counter()
         pq = train(
             key, jnp.asarray(data), args.m, args.bits, args.iters,
-            use_kernel=on_tpu,
-            compute_dtype=jnp.bfloat16 if on_tpu else jnp.float32,
             checkpoint_every=max(2, args.iters // 3), checkpoint_path=ckpt,
         )
         jax.block_until_ready(pq.codebooks)
@@ -117,20 +119,19 @@ def main() -> None:
             + 0.1 * rng.standard_normal((args.queries, args.d)).astype(np.float32)
         )
         codes_j = jnp.asarray(codes)
-        packed = args.bits <= 4 and args.m % 2 == 0 and on_tpu
+        packed = (args.bits <= 4 and args.m % 2 == 0
+                  and use_kernel("adc", codes_dtype=jnp.uint8, packed=True))
         if packed:
             # 4-bit codes: pack two per byte and search the packed corpus
-            # directly (half the code HBM, same scores).
+            # directly with the ADC kernel (half the code bytes, same
+            # scores).
             from reductive_tpu.ops import pack_u4_codes
 
             codes_j = pack_u4_codes(codes_j)
             print(f"packed u4 codes: {codes.nbytes/1e6:.1f} MB -> "
                   f"{codes_j.nbytes / 1e6:.1f} MB")
         t0 = time.perf_counter()
-        dists, idx = search(
-            pq, queries, codes_j, top_k=10,
-            method="kernel" if on_tpu else "einsum", packed=packed,
-        )
+        dists, idx = search(pq, queries, codes_j, top_k=10, packed=packed)
         jax.block_until_ready(idx)
         dt = time.perf_counter() - t0
         print(f"searched {args.queries} queries x {args.n} vectors in "
@@ -142,23 +143,20 @@ def main() -> None:
         print(f"recall@10 of the planted nearest neighbor: {recall:.2f}")
 
         # 6. Optional IVF-PQ: prune the scan to nprobe cells of residual
-        # codes; at 10M x 128 this measures ~10x faster than exhaustive
-        # ADC at higher recall (residual encoding).
+        # codes (residual encoding).
         if args.ivf:
             from reductive_tpu.ivf import build_ivf, ivf_search, train_ivf_pq
 
             t0 = time.perf_counter()
             coarse, rpq = train_ivf_pq(
                 jax.random.PRNGKey(7), jnp.asarray(data), args.ivf,
-                args.m, args.bits, use_kernel=on_tpu,
+                args.m, args.bits,
             )
-            index = build_ivf(coarse, rpq, jnp.asarray(data),
-                              capacity="auto", use_kernel=on_tpu)
+            index = build_ivf(coarse, rpq, jnp.asarray(data), capacity="auto")
             print(f"built IVF index ({args.ivf} cells, capacity "
                   f"{index.capacity}) in {time.perf_counter()-t0:.1f}s")
             t0 = time.perf_counter()
-            _, ids = ivf_search(index, queries, top_k=10, nprobe=8,
-                                use_kernel=on_tpu)
+            _, ids = ivf_search(index, queries, top_k=10, nprobe=8)
             jax.block_until_ready(ids)
             print(f"IVF search (nprobe=8) in "
                   f"{(time.perf_counter()-t0)*1e3:.0f} ms (incl compile)")
@@ -176,13 +174,13 @@ def main() -> None:
             from reductive_tpu import train_pq_streamed
             from reductive_tpu.ivf import build_ivf, ivf_search, train_ivf_pq
 
-            wire = jnp.bfloat16 if on_tpu else None
+            wire = None  # jnp.bfloat16 halves the host-to-device bytes
             with VecsReader(corpus_path) as reader:
                 t0 = time.perf_counter()
                 spq = train_pq_streamed(
                     jax.random.PRNGKey(9), reader, args.m, args.bits,
                     max(2, args.iters // 2), batch_size=1 << 15,
-                    transfer_dtype=wire, use_kernel=on_tpu,
+                    transfer_dtype=wire,
                 )
                 rec = spq.reconstruct_batch(spq.quantize_batch(sample))
                 smse = float(jnp.mean((sample - rec) ** 2))
@@ -192,16 +190,15 @@ def main() -> None:
                 cells = args.ivf or 64
                 coarse, rpq = train_ivf_pq(
                     jax.random.PRNGKey(10), reader, cells, args.m, args.bits,
-                    use_kernel=on_tpu, train_sample=min(args.n - 1, 1 << 17),
+                    train_sample=min(args.n - 1, 1 << 17),
                 )
                 t0 = time.perf_counter()
-                index = build_ivf(coarse, rpq, reader, capacity="auto",
-                                  use_kernel=on_tpu)
+                index = build_ivf(coarse, rpq, reader, capacity="auto")
                 print(f"disk: IVF build from reader in "
                       f"{time.perf_counter()-t0:.1f}s "
                       f"(dropped={index.dropped_ids.size})")
                 _, i_r = ivf_search(index, queries, top_k=10, nprobe=8,
-                                    use_kernel=on_tpu, refine_with=reader)
+                                    refine_with=reader)
                 rec_d = float(np.mean([
                     planted[q] in np.asarray(i_r[q])
                     for q in range(args.queries)
@@ -212,7 +209,7 @@ def main() -> None:
         # is a pure function of its index, generated on device on demand —
         # the same streaming code paths as --disk with zero host-link
         # traffic (how benches/config5_full.py runs 100M x 768 on one
-        # chip).
+        # card).
         if args.virtual:
             from reductive_tpu import SyntheticReader, train_pq_streamed
 
@@ -221,15 +218,13 @@ def main() -> None:
             vpq = train_pq_streamed(
                 jax.random.PRNGKey(11), vr, args.m, args.bits,
                 max(2, args.iters // 2), batch_size=1 << 15,
-                use_kernel=on_tpu,
-                compute_dtype=jnp.bfloat16 if on_tpu else jnp.float32,
             )
             jax.block_until_ready(vpq.codebooks)
             print(f"virtual: streamed PQ training in "
                   f"{time.perf_counter()-t0:.1f}s")
             t0 = time.perf_counter()
             vcodes = jnp.concatenate([
-                vpq.quantize_batch(b, method="kernel" if on_tpu else "exact")
+                vpq.quantize_batch(b)
                 for _, b in vr.batches(1 << 15)
             ])
             jax.block_until_ready(vcodes)

@@ -10,7 +10,7 @@ a query-serving process does:
 4. apply live updates (``ivf_add`` / ``ivf_remove``) without re-tracing
    compiled search programs,
 5. fan the exhaustive scan out over a device mesh (``search_sharded``)
-   when one chip's scan rate isn't enough.
+   when one card's scan rate isn't enough.
 
 Run: ``python examples/serving.py [--n 100000] [--cells 256]``
 (CPU-safe at small sizes: ``--n 20000 --cells 64``.)
@@ -41,8 +41,11 @@ def main() -> None:
         build_ivf, ivf_add, ivf_remove, ivf_search, train_ivf_pq,
     )
     from reductive_tpu.search import search, search_sharded
+    from reductive_tpu.utils import enable_compile_cache
 
-    on_tpu = jax.devices()[0].platform != "cpu"
+    enable_compile_cache()
+    # use_kernel stays at its default everywhere: the library runs the GPU
+    # kernels on a GPU and plain XLA elsewhere (reductive_tpu.dispatch).
     print(f"platform: {jax.devices()[0].platform}")
 
     # Corpus on the unit sphere: the cosine-serving regime (dot == cos).
@@ -56,16 +59,14 @@ def main() -> None:
     t0 = time.perf_counter()
     coarse, rpq = train_ivf_pq(
         jax.random.PRNGKey(1), x, args.cells, args.m, args.bits,
-        use_kernel=on_tpu,
     )
-    index = build_ivf(coarse, rpq, x, capacity="auto", use_kernel=on_tpu)
+    index = build_ivf(coarse, rpq, x, capacity="auto")
     print(f"index: {args.cells} cells, capacity {index.capacity}, "
           f"built in {time.perf_counter() - t0:.1f}s (incl compile)")
 
     # 2. L2 serving: IVF shortlist + exact refine.
     t0 = time.perf_counter()
-    _, ids_l2 = ivf_search(index, queries, top_k=10, nprobe=8,
-                           use_kernel=on_tpu, refine_with=x)
+    _, ids_l2 = ivf_search(index, queries, top_k=10, nprobe=8, refine_with=x)
     print(f"L2 IVF+refine: {1e3 * (time.perf_counter() - t0):.1f} ms "
           f"(top-1 self-hit "
           f"{float(np.mean(np.asarray(ids_l2)[:, 0] == np.arange(0, args.n, args.n // args.queries)[:args.queries])):.2f})")
@@ -73,7 +74,7 @@ def main() -> None:
     # 3. The same index serves cosine/MIPS queries.
     t0 = time.perf_counter()
     _, ids_ip = ivf_search(index, queries, top_k=10, nprobe=8,
-                           metric="dot", use_kernel=on_tpu, refine_with=x)
+                           metric="dot", refine_with=x)
     print(f"MIPS IVF+refine: {1e3 * (time.perf_counter() - t0):.1f} ms "
           f"(agrees with L2 top-1 on the sphere: "
           f"{float(np.mean(np.asarray(ids_ip)[:, 0] == np.asarray(ids_l2)[:, 0])):.2f})")
@@ -84,18 +85,17 @@ def main() -> None:
     x_new = x_new / jnp.linalg.norm(x_new, axis=1, keepdims=True)
     t0 = time.perf_counter()
     index = ivf_remove(index, np.arange(1000))
-    index = ivf_add(index, x_new, use_kernel=on_tpu)
+    index = ivf_add(index, x_new)
     print(f"update: -1000/+1000 rows in "
           f"{1e3 * (time.perf_counter() - t0):.1f} ms "
           f"({int((np.asarray(index.cell_ids) >= 0).sum())} live)")
-    _, ids_upd = ivf_search(index, x_new[:4], top_k=3, nprobe=8,
-                            use_kernel=on_tpu)
+    _, ids_upd = ivf_search(index, x_new[:4], top_k=3, nprobe=8)
     new_id0 = args.n
     print(f"update: new rows retrievable: "
           f"{float(np.mean(np.asarray(ids_upd)[:, 0] >= new_id0)):.2f}")
 
     # 5. Scale-out: corpus-sharded exhaustive scan over a mesh (here all
-    # local devices; on a pod, the same code over ICI).  The exhaustive
+    # local devices; across the cards of a host the merge rides NVLink).  The exhaustive
     # scan quantizes FULL vectors, so it needs a flat PQ trained on the
     # corpus — the IVF residual quantizer's codebooks span the
     # centroid-subtracted residual distribution and would mis-scale raw
@@ -107,7 +107,6 @@ def main() -> None:
 
         flat_pq = train_pq_chunked(
             jax.random.PRNGKey(3), x, args.m, args.bits, 8,
-            use_kernel=on_tpu,
         )
         codes = flat_pq.quantize_batch(x, dtype=jnp.uint8)
         shards = max(s for s in range(1, n_dev + 1) if args.n % s == 0)

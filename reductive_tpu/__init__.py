@@ -1,12 +1,13 @@
-"""reductive_tpu — a TPU-native product-quantization engine.
+"""reductive_tpu — a JAX product-quantization engine.
 
 A from-scratch JAX/XLA/Pallas implementation of the full capability set of
 `finalfusion/reductive <https://github.com/finalfusion/reductive>`_ (the
-Rust reference, ``/root/reference``): k-means clustering, plain product
-quantization (Jégou et al., 2011), and optimized product quantization with
-learned orthonormal rotations (Ge et al., 2013), plus batched encode and
-reconstruction — re-designed as sharded tensor programs for TPU hardware
-rather than translated from the reference's rayon/BLAS/LAPACK design.
+Rust reference): k-means clustering, plain product quantization (Jégou et
+al., 2011), and optimized product quantization with learned orthonormal
+rotations (Ge et al., 2013), plus batched encode and reconstruction —
+re-designed as sharded tensor programs for an accelerator (an NVIDIA GPU,
+with Pallas kernels for the hot paths) rather than translated from the
+reference's rayon/BLAS/LAPACK design.
 
 Top-level surface::
 

@@ -121,24 +121,15 @@ class SyntheticReader:
 
 
 def _encode_fn(pq: Pq, dtype, use_kernel: bool):
-    if use_kernel:
-        from .ops.assign import pq_encode
+    from .dispatch import encode
 
-        def fn(codebooks, projection, x):
-            if projection is not None:
-                x = jnp.dot(x, projection, precision="highest")
-            return pq_encode(codebooks, x, dtype=dtype)
-    else:
-        from .pq import primitives
-
-        def fn(codebooks, projection, x):
-            # The einsum path is the exact path: upcast a reduced wire
-            # dtype (transfer_dtype) back to the codebook dtype for
-            # compute (CPU XLA also lacks bf16 x bf16 dots).
-            x = x.astype(codebooks.dtype)
-            if projection is not None:
-                x = jnp.dot(x, projection, precision="highest")
-            return primitives.quantize_batch(codebooks, x, dtype=dtype)
+    def fn(codebooks, projection, x):
+        # Upcast a reduced wire dtype (transfer_dtype) back to the
+        # codebook dtype for compute.
+        x = x.astype(codebooks.dtype)
+        if projection is not None:
+            x = jnp.dot(x, projection, precision="highest")
+        return encode(codebooks, x, dtype=dtype, use_kernel=use_kernel)
 
     # No donation here: the (b, d) float input can never alias the much
     # smaller (b, m) integer output, XLA already frees the batch temp at
@@ -167,16 +158,13 @@ def stream_encode_batches(
     padded on device entry and trimmed on exit.
 
     ``transfer_dtype=jnp.bfloat16`` casts each batch on the **host**
-    before the host→device copy, halving the bytes on the wire — and the
-    host→device link is the measured bottleneck of production encode
-    pipelines (``benches/run.py --only config5x``).  The serving kernel
-    computes its cross terms in bfloat16 anyway and host/device casts
-    round identically, so on the kernel path the emitted codes are
-    **bit-identical** to an f32 transfer; only the einsum fallback and
-    projection rotation see reduced input precision.
+    before the host→device copy, halving the bytes on the wire; the
+    codes are then those of the bf16-rounded vectors.  ``use_kernel``
+    is resolved by :func:`reductive_tpu.dispatch.use_kernel`.
     """
-    if use_kernel is None:
-        use_kernel = jax.default_backend() == "tpu"
+    from .dispatch import use_kernel as choose
+
+    use_kernel = choose("encode", use_kernel)
     fn = _encode_fn(pq, dtype, use_kernel)
     codebooks, projection = pq.codebooks, pq.projection
 

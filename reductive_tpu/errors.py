@@ -3,7 +3,7 @@
 Mirrors the semantics of the reference's error enum (reference:
 ``src/error.rs:6-41``) and the invariant checks performed before training
 (``src/pq/pq.rs:63-100``).  Unlike the reference — where these are enum
-variants returned through ``Result`` — the TPU build raises Python
+variants returned through ``Result`` — this library raises Python
 exceptions, all deriving from :class:`ReductiveError` so callers can catch
 the whole family.  Validation happens on the host with static shapes, before
 anything is traced or compiled.

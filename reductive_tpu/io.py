@@ -3,7 +3,7 @@
 The reference keeps no serialization of its own — the model state is the
 ``(projection?, quantizers)`` pair with public read accessors and a public
 constructor, and persistence is delegated to the downstream finalfusion
-crate (reference: ``src/pq/pq.rs:29-61,103-110,191-193``).  The TPU build
+crate (reference: ``src/pq/pq.rs:29-61,103-110,191-193``).  This library
 ships a self-contained artifact instead: a single ``.npz`` holding the
 codebooks, the optional projection, and a format version.
 

@@ -1,16 +1,15 @@
 """Linear-algebra utilities: pairwise distances and covariance.
 
-TPU-native counterpart of the reference's linalg layer (reference:
+Counterpart of the reference's linalg layer (reference:
 ``src/linalg.rs``).  The key design decision is shared with the reference
 (design note at ``src/linalg.rs:66-86``): squared Euclidean distances are
 computed through the norm expansion
 
     ``|u - v|^2 = |u|^2 + |v|^2 - 2 u.v``
 
-so that the heavy lifting is a single matrix multiplication.  On TPU that
-matmul maps straight onto the MXU systolic array, and XLA fuses the norm
-broadcasts into the epilogue — this is the mathematically identical,
-hardware-idiomatic formulation.
+so that the heavy lifting is a single matrix multiplication, which XLA
+hands to the device's matrix units and fuses the norm broadcasts around —
+the mathematically identical, hardware-idiomatic formulation.
 
 All functions are pure, shape-polymorphic over the leading dimensions, and
 safe to ``jit``/``vmap``/``shard_map``.

@@ -1,6 +1,6 @@
 // Native IO runtime: mmap-backed vector-dataset reader + code packing.
 //
-// The TPU compute path is JAX/XLA/Pallas; this is the native runtime
+// The device compute path is JAX/XLA/Pallas; this is the native runtime
 // around it, filling the role the reference delegates to its host
 // language (the reference is a pure-Rust library whose data already sits
 // in ndarray buffers).  For production encode jobs the corpus lives in
@@ -150,7 +150,7 @@ int32_t vecs_read_f32(const VecsFile* f, int64_t start, int64_t count,
 // the consumer into a ring of reusable buffers.  The consumer (the Python
 // streaming-encode loop) blocks only when IO cannot keep up with the
 // device; with `depth` buffers in flight, disk read, f32 conversion, the
-// host->device copy, and TPU compute all overlap.
+// host->device copy, and device compute all overlap.
 // ---------------------------------------------------------------------------
 
 namespace {

@@ -1,27 +1,21 @@
-"""Pallas TPU kernels for the hot paths.
+"""Hand-written GPU kernels for the two hot paths (Pallas through Triton).
 
 * :mod:`~reductive_tpu.ops.assign` — fused distance + argmin encode kernel
-  (the serving hot loop and the k-means assign step).
-* :mod:`~reductive_tpu.ops.stats` — fused assign + per-centroid
-  sums/counts kernel (the Lloyd's-iteration hot loop for large corpora).
-* :mod:`~reductive_tpu.ops.decode` — fused decode kernel (codes →
-  reconstructions via block-diagonal one-hot matmul, bit-exact 3-split
-  bf16 mode).
+  (the serving encode and the assign half of every Lloyd's step).
+* :mod:`~reductive_tpu.ops.adc` — lookup-table ADC scoring of uint8 and
+  packed-u4 codes (exhaustive and IVF search).
+
+Which of them runs is decided in :mod:`reductive_tpu.dispatch`.
+:mod:`~reductive_tpu.ops.packing` holds the plain-XLA 4-bit code packing.
 """
 
 from .adc import adc_scores_kernel
-from .assign import assign_nearest, pq_encode, pq_encode_verified
-from .decode import pq_decode
+from .assign import assign_nearest, pq_encode
 from .packing import pack_u4_codes, unpack_u4_codes
-from .stats import pq_assign_stats, pq_assign_stats_verified
 
 __all__ = [
     "pq_encode",
-    "pq_encode_verified",
-    "pq_decode",
     "assign_nearest",
-    "pq_assign_stats",
-    "pq_assign_stats_verified",
     "adc_scores_kernel",
     "pack_u4_codes",
     "unpack_u4_codes",

@@ -1,20 +1,21 @@
-"""Fused ADC-scoring Pallas kernel: multi-hot codes x lookup tables on MXU.
+"""ADC lookup-table scoring kernel (Pallas through Triton).
 
 ADC scoring sums ``m`` table entries per (query, database vector):
-``score[q, i] = sum_j T[q, j, codes[i, j]]``.  The XLA path
-(:func:`reductive_tpu.search.adc_scores`) runs ``m`` sequential
-``(nq, k) x (k, chunk)`` matmuls per chunk; this kernel restates the whole
-sum as **one** matmul per block — ``multihot(codes) @ T_flat`` with the
-``(n, m*kp)`` multi-hot built in VMEM from the code block — contracting
-the full ``m*kp`` depth with **zero** redundant FLOPs (unlike the
-block-diagonal encode/decode weights, the table matrix is dense).
+``score[q, i] = sum_j T[q, j, codes[i, j]]``.  The einsum scorer
+(:func:`reductive_tpu.search.adc_scores`) restates each lookup as a
+one-hot matrix product, ``2 * m * k`` FLOPs per pair.  Here each program
+takes a tile of ``block_q`` queries and ``block_n`` code rows, reads each
+code column once, and gathers the table entries straight into an f32
+accumulator: ``m`` loads per pair.  The tables of a query tile
+(``block_q * m * k * 4`` bytes, 16 KB per query at m=16, k=256) stay hot
+in L1/L2 across the code tiles that read them.
 
-Tables are bf16-split like the decode kernel: the multi-hot side is an
-exact 0/1, so ``splits=3`` eliminates table-representation error
-entirely — the only remaining difference vs f32-table scoring is f32
-summation order across the ``m`` terms (a few ulps of the score).
-``splits=1`` (~2^-9 table rounding, ranking-safe for all but near-equal
-distances) is the serving mode.
+``packed=True`` scores a packed-u4 corpus (``(n, m/2)`` bytes from
+:func:`reductive_tpu.ops.packing.pack_u4_codes`, ``k <= 16``, even ``m``):
+the nibbles are split in registers, so half the code bytes move.
+
+Scores are f32 sums of the f32 table entries, in subquantizer order: they
+equal the einsum scorer's up to f32 summation order.
 """
 
 from __future__ import annotations
@@ -25,81 +26,51 @@ import jax
 import jax.numpy as jnp
 from jax import Array
 from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
+from jax.experimental.pallas import triton as plgpu
 
-from .assign import _round_up
-from .decode import (
-    _decode_kernel_int8,
-    fit_block_n,
-    lane_multihot,
-    lane_multihot_packed,
-    packed_block_perm,
-    split_bf16,
-)
-
-__all__ = ["adc_scores_kernel", "max_query_batch"]
+__all__ = ["adc_scores_kernel"]
 
 
-def max_query_batch(m: int, k: int, splits=2, budget: int = 13 * (1 << 20)) -> int:
-    """Largest per-call query batch whose resident tables fit the kernel's
-    VMEM budget — the same arithmetic ``fit_block_n`` applies, solved for
-    ``nq``.  ``search()`` uses this to auto-batch large query sets."""
-    kp = _round_up(k, 8)
-    n_splits, itemsize = (1, 1) if splits == "int8" else (splits, 2)
-    for nq in (256, 128, 64, 32, 16, 8):
-        nqp = max(nq, 128)
-        need = n_splits * m * kp * nqp * itemsize + 128 * (
-            m * kp * 2 + nqp * 4 + m * 4
-        )
-        if need <= budget:
-            return nq
-    return 4
-
-
-def _adc_kernel(codes_ref, t_ref, out_ref, *, m, kp, splits, packed=False):
-    mh = lane_multihot_packed if packed else lane_multihot
-    multihot = mh(codes_ref[:], m, kp, jnp.bfloat16)  # (bn, m*kp)
-    acc = jnp.zeros(out_ref.shape, jnp.float32)
-    for s in range(splits):
-        acc += jax.lax.dot_general(
-            multihot,
-            t_ref[s],
-            dimension_numbers=(((1,), (0,)), ((), ())),
-            preferred_element_type=jnp.float32,
-        )
-    out_ref[:] = acc
+def _adc_kernel(t_ref, codes_ref, out_ref, *, n, nq, m, k, block_q, block_n,
+                packed):
+    i = pl.program_id(0)
+    qb = pl.program_id(1)
+    rows = pl.ds(i * block_n, block_n)
+    row_ok = i * block_n + jnp.arange(block_n, dtype=jnp.int32) < n
+    q = qb * block_q + jnp.arange(block_q, dtype=jnp.int32)
+    q_ok = q < nq
+    mask = q_ok[:, None] & row_ok[None, :]
+    base = q[:, None] * (m * k)
+    acc = jnp.zeros((block_q, block_n), jnp.float32)
+    for j in range(m):
+        col = j // 2 if packed else j
+        code = plgpu.load(codes_ref.at[rows, col], mask=row_ok,
+                          other=0).astype(jnp.int32)
+        if packed:
+            code = (code >> (4 * (j % 2))) & 0xF
+        acc += plgpu.load(t_ref.at[base + (j * k) + code[None, :]],
+                          mask=mask, other=0.0)
+    plgpu.store(out_ref.at[pl.ds(qb * block_q, block_q), rows], acc,
+                mask=mask)
 
 
 @functools.partial(
-    jax.jit, static_argnames=("splits", "block_n", "interpret", "packed")
+    jax.jit, static_argnames=("packed", "block_q", "block_n", "interpret")
 )
 def adc_scores_kernel(
     tables: Array,
     codes: Array,
     *,
-    splits: int = 2,
-    block_n: int | None = None,
-    interpret: bool = False,
     packed: bool = False,
+    block_q: int = 16,
+    block_n: int = 64,
+    interpret: bool = False,
 ) -> Array:
-    """ADC scores for every (query, database vector) pair via the fused
-    kernel.
-
-    ``tables`` is ``(nq, m, k)`` from
-    :func:`reductive_tpu.search.adc_tables`; ``codes`` is ``(n, m)``.
-    Returns ``(nq, n)`` f32 scores.  ``splits=3`` carries zero
-    table-representation error (differences vs the XLA path are f32
-    summation order, a few ulps); ``splits=2`` (default) adds ~2^-18
-    relative table error — far below any meaningful distance gap;
-    ``splits=1`` is a fast serving mode (~2^-9); ``splits="int8"`` is the
-    classic 8-bit-LUT serving mode — per-query symmetric table
-    quantization, int8-rate matmul, int32 accumulation.
-
-    ``packed=True`` scores a **packed-u4** corpus (``(n, m/2)`` bytes from
-    :func:`reductive_tpu.ops.packing.pack_u4_codes`; requires ``k <= 16``
-    and even ``m``): nibbles are unpacked in VMEM, halving the code-side
-    HBM traffic and doubling the corpus a chip can hold.
-    """
+    """``(nq, n)`` f32 ADC scores of ``(nq, m, k)`` tables (from
+    :func:`reductive_tpu.search.adc_tables`) against ``(n, m)`` uint8
+    codes, or ``(n, m/2)`` packed-u4 bytes with ``packed=True``.
+    ``block_q``/``block_n`` are tuning knobs;
+    ``interpret=True`` runs the Pallas interpreter (CPU tests)."""
     nq, m, k = tables.shape
     n = codes.shape[0]
     if packed:
@@ -112,95 +83,19 @@ def adc_scores_kernel(
                 f"packed codes have shape {codes.shape}, expected (n, {m // 2})"
             )
     elif codes.ndim != 2 or codes.shape[1] != m:
-        raise ValueError(
-            f"codes have shape {codes.shape}, expected (n, {m})"
-        )
-    kp = _round_up(k, 8)
-    if splits == "int8":
-        # Affine per-(query, subquantizer) quantization over [min, max]:
-        # L2 tables are non-negative squared distances with a large
-        # constant offset per query (dot-metric tables are negated inner
-        # products, offset the other way), so symmetric [-max, max] would
-        # waste resolution.  Subtracting the per-table minimum
-        # shifts every score by a per-query constant (sum of m minima) —
-        # added back exactly in the dequant — and ranking is unchanged.
-        t_min = jnp.min(tables, axis=2, keepdims=True)  # (nq, m, 1)
-        t_max = jnp.max(tables, axis=2, keepdims=True)
-        # One shared scale per query (the dequant is a single multiply);
-        # per-subquantizer minima fold into the additive offset exactly.
-        scale = jnp.maximum(
-            jnp.max((t_max - t_min)[:, :, 0], axis=1) / 255.0, 1e-30
-        )  # (nq,)
-        q = jnp.round((tables - t_min) / scale[:, None, None]) - 128.0
-        Ti = jnp.full((m, kp, nq), -128.0, jnp.float32)
-        Ti = Ti.at[:, :k, :].set(jnp.moveaxis(q, 0, 2))
-        if packed:
-            Ti = Ti[jnp.asarray(packed_block_perm(m))]
-        T = jnp.clip(Ti, -128, 127).reshape(m * kp, nq).astype(jnp.int8)
-        offset = jnp.sum(t_min[:, :, 0], axis=1) + 128.0 * m * scale  # (nq,)
-        scale_offset = jnp.stack([scale, offset])  # (2, nq)
-        n_splits, t_itemsize = 1, 1
-    else:
-        Tf = jnp.zeros((m, kp, nq), dtype=jnp.float32)
-        Tf = Tf.at[:, :k, :].set(jnp.moveaxis(tables, 0, 2))
-        if packed:
-            Tf = Tf[jnp.asarray(packed_block_perm(m))]
-        Tf = Tf.reshape(m * kp, nq)
-        T = split_bf16(Tf, splits)  # (splits, m*kp, nq)
-        n_splits, t_itemsize = splits, 2
-
-    if block_n is None:
-        block_n = max(128, min(2048, (4 << 20) // (m * kp * 2) // 128 * 128))
-    nqp = max(nq, 128)
-    # The kp<128 multihot path carries full-width (bn, m*kp) iota /
-    # expected i32+f32 transients on top of the multihot itself.
-    multihot_row = m * kp * 2 + (m * kp * 12 if kp < 128 else 0)
-    block_n = fit_block_n(
-        block_n,
-        resident=n_splits * m * kp * nqp * t_itemsize,  # resident tables
-        per_row=multihot_row + nqp * 4 + m * 4,         # multihot + out + codes
-        what=f"nq={nq}, m={m}, k~{kp}, splits={splits}",
-        fallback="batch the queries (e.g. <=256 per call) or use the "
-                 "einsum scorer (reductive_tpu.search.adc_scores)",
-    )
-
-    cm = m // 2 if packed else m  # code columns per row block
-    if splits == "int8":
-        # Identical computation to the int8 decode kernel: multi-hot @
-        # quantized matrix, int32 accumulate, per-column dequant.
-        kernel = functools.partial(_decode_kernel_int8, m=m, kp=kp, packed=packed)
-        out = pl.pallas_call(
-            kernel,
-            grid=(pl.cdiv(n, block_n),),
-            in_specs=[
-                pl.BlockSpec((block_n, cm), lambda i: (i, 0), memory_space=pltpu.VMEM),
-                pl.BlockSpec((m * kp, nq), lambda i: (0, 0), memory_space=pltpu.VMEM),
-                pl.BlockSpec((2, nq), lambda i: (0, 0), memory_space=pltpu.VMEM),
-            ],
-            out_specs=pl.BlockSpec(
-                (block_n, nq), lambda i: (i, 0), memory_space=pltpu.VMEM
-            ),
-            out_shape=jax.ShapeDtypeStruct((n, nq), jnp.float32),
-            interpret=interpret,
-        )(codes, T, scale_offset)
-        return out.T
-
+        raise ValueError(f"codes have shape {codes.shape}, expected (n, {m})")
+    if codes.dtype != jnp.uint8:
+        raise ValueError(f"the ADC kernel takes uint8 codes, got {codes.dtype}")
     kernel = functools.partial(
-        _adc_kernel, m=m, kp=kp, splits=splits, packed=packed
+        _adc_kernel, n=n, nq=nq, m=m, k=k, block_q=block_q, block_n=block_n,
+        packed=packed,
     )
-    out = pl.pallas_call(
+    return pl.pallas_call(
         kernel,
-        grid=(pl.cdiv(n, block_n),),
-        in_specs=[
-            pl.BlockSpec((block_n, cm), lambda i: (i, 0), memory_space=pltpu.VMEM),
-            pl.BlockSpec(
-                (splits, m * kp, nq), lambda i: (0, 0, 0), memory_space=pltpu.VMEM
-            ),
-        ],
-        out_specs=pl.BlockSpec(
-            (block_n, nq), lambda i: (i, 0), memory_space=pltpu.VMEM
-        ),
-        out_shape=jax.ShapeDtypeStruct((n, nq), jnp.float32),
+        grid=(pl.cdiv(n, block_n), pl.cdiv(nq, block_q)),
+        out_shape=jax.ShapeDtypeStruct((nq, n), jnp.float32),
+        backend="triton",
+        compiler_params=plgpu.CompilerParams(num_warps=4, num_stages=2),
         interpret=interpret,
-    )(codes, T)
-    return out.T
+        name="adc_scores",
+    )(tables.astype(jnp.float32).reshape(-1), codes)

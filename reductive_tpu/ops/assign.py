@@ -1,41 +1,32 @@
-"""Fused PQ-encode / nearest-centroid Pallas kernel.
+"""Fused PQ-encode / nearest-centroid kernel (Pallas through Triton).
 
 The encode hot path (reference call stack: ``src/pq/pq.rs:256`` →
-``src/pq/primitives.rs:64-104`` → ``src/kmeans.rs:133-159`` →
-``src/linalg.rs:150-180``) computes, for every input row and every
-subquantizer, squared distances to all ``k`` centroids and takes the
-argmin.  Materialized naively, the ``(n, m, k)`` distance tensor is 16 GB
-at n=1M, m=16, k=256 — this kernel keeps it entirely in VMEM.
+``src/pq/primitives.rs:64-104`` → ``src/kmeans.rs:133-159``) computes, for
+every input row and every subquantizer, squared distances to all ``k``
+centroids and takes the argmin.  The plain XLA version
+(:func:`reductive_tpu.pq.primitives.quantize_batch`) writes the whole
+``(n, m, k)`` f32 distance tensor to device memory before the argmin:
+16 KB per 128-d row against 512 B of input.  This kernel reads only the
+input and writes only the codes.
 
-Three TPU-specific design decisions (all measured on a v5e chip):
+Layout, one program per tile of ``block_n`` rows:
 
-1. **Block-diagonal weights.**  The per-subquantizer contraction is only
-   ``ds`` long (8 in the flagship config) while the MXU contracts 128
-   elements per pass.  Packing all ``m`` codebooks into one block-diagonal
-   ``(d, m*kp)`` matrix turns ``m`` tiny matmuls into a single full-K MXU
-   matmul; the zero blocks are exactly the padding the hardware would have
-   inserted anyway.
+* the distance cross terms of subquantizer ``j`` are tensor-core dots
+  ``x[:, j*ds + c*depth : ...] @ W[j, c]`` over ``ceil(ds / depth)``
+  slabs of ``depth >= 16`` columns (16 is the least depth a Triton dot
+  takes).  ``W`` is zero past row ``ds``, so a slab that runs into the
+  next subquantizer's columns adds nothing; for ``ds < 16`` the dot does
+  ``16 / ds`` times the useful work instead of padding ``x``;
+* centroids are visited in tiles of ``k_tile`` columns with a running
+  (minimum, index) pair, so the ``(block_n, k)`` distances never leave
+  registers and ``k`` may be as large as a coarse quantizer's;
+* the argmin breaks ties to the first index, as the reference does
+  (``src/kmeans.rs:149-156``).
 
-2. **Transposed layout.**  Scores are computed as ``(m*kp, block_n)`` —
-   centroids on *sublanes*, instances on *lanes* — because Mosaic lowers
-   cross-**sublane** reductions efficiently while cross-lane argmin is an
-   order of magnitude slower (measured: 66 M vec/s transposed vs 10 M
-   lane-major for the identical computation).
-
-3. **Packed sortable keys.**  ``argmin`` with first-index tie-break is
-   done with a single ``min`` reduction: distances are bitcast to int32,
-   monotonically sign-flipped, the low ``ceil(log2 k)`` bits replaced by
-   the centroid index.  One min then yields value and index at once; ties
-   break to the smallest index like the reference
-   (``src/kmeans.rs:149-156``).  The coarsening costs ~``2^-(23-idx_bits)``
-   relative distance precision — far below the bfloat16 matmul noise of
-   the throughput mode, and irrelevant for correctness-mode tests which
-   use f32 compute.
-
-Matmul inputs are bfloat16 by default (f32 accumulation) — the throughput
-configuration of the MXU.  The f32-exact einsum path
-(:func:`reductive_tpu.pq.primitives.quantize_batch`) remains the default
-on the model API and doubles as the correctness oracle.
+The dots run in TF32 with three passes (``TF32_TF32_F32_X3``, about 21
+bits of each product), so codes agree with the f32 einsum except where
+two centroids are equidistant to within f32 rounding.  Padded centroids
+carry a ``+inf`` norm and never win.
 """
 
 from __future__ import annotations
@@ -44,200 +35,102 @@ import functools
 
 import jax
 import jax.numpy as jnp
-from jax import Array
+from jax import Array, lax
 from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
+from jax.experimental.pallas import triton as plgpu
 
-__all__ = ["pq_encode", "pq_encode_verified", "assign_nearest", "pack_block_diagonal"]
-
-
-def _round_up(x: int, mult: int) -> int:
-    return ((x + mult - 1) // mult) * mult
+__all__ = ["pq_encode", "assign_nearest"]
 
 
-_TRUNC_MASK = -65536  # 0xFFFF0000: sign + exponent + 7 mantissa bits (bf16)
+def _next_pow2(v: int) -> int:
+    return 1 << max(0, v - 1).bit_length()
 
 
-def trunc_split3_bf16(x):
-    """Exact 3-way bf16 decomposition of an f32 tensor (inside a Pallas
-    kernel): ``x == hi + mid + lo`` bit-for-bit, each term exactly
-    representable in bfloat16 (top 8 / next 8 / last 8 significand bits).
-
-    Masking the low 16 bits (instead of a round-trip ``astype``) keeps the
-    split exact under ``--xla_allow_excess_precision`` (which folds
-    f32→bf16→f32 casts into identity); the final casts are value-exact, so
-    folding them is harmless.
-    """
-    mask = jnp.int32(_TRUNC_MASK)
-    hi = pltpu.bitcast(pltpu.bitcast(x, jnp.int32) & mask, jnp.float32)
-    r = x - hi  # exact: r's significand is the low bits of x's
-    mid = pltpu.bitcast(pltpu.bitcast(r, jnp.int32) & mask, jnp.float32)
-    lo = r - mid  # exact, <= 8 significant bits
-    return hi.astype(jnp.bfloat16), mid.astype(jnp.bfloat16), lo.astype(jnp.bfloat16)
-
-
-def trunc_split2_bf16_stacked(W):
-    """Stacked 2-way bf16 split (top 8 / next 8 significand bits) of an
-    f32 matrix, for use *outside* Pallas kernels (under jit) — the
-    weight-side operand of the exact-mode 3-pass score matmul.  Bit masks
-    via ``lax.bitcast_convert_type`` so ``--xla_allow_excess_precision``
-    cannot fold the split away."""
-    mask = jnp.int32(_TRUNC_MASK)
-    wi = jax.lax.bitcast_convert_type(W, jnp.int32)
-    hi = jax.lax.bitcast_convert_type(wi & mask, jnp.float32)
-    r = W - hi
-    lo = jax.lax.bitcast_convert_type(
-        jax.lax.bitcast_convert_type(r, jnp.int32) & mask, jnp.float32
-    )
-    return jnp.stack([hi, lo]).astype(jnp.bfloat16)
-
-
-def scores_3pass(w_hi, w_lo, x_hi, x_mid):
-    """Exact-mode score matmul: three single-pass bf16 products
-    (``W_hi x_hi + W_hi x_mid + W_lo x_hi`` with f32 accumulation) — XLA's
-    own ``Precision.HIGH`` algorithm, which Mosaic does not expose as a
-    dot precision.  Relative cross-term error ~2^-17, below the packed-key
-    argmin's 2^-15 tie coarsening, so assignments match the HIGHEST-
-    precision result except on ties the coarsening already collapses.
-    Used identically by the encode and assign+stats kernels so both
-    compute bit-identical packed keys."""
-    dn = (((1,), (1,)), ((), ()))
-    s = jax.lax.dot_general(w_hi, x_hi, dn, preferred_element_type=jnp.float32)
-    s += jax.lax.dot_general(w_hi, x_mid, dn, preferred_element_type=jnp.float32)
-    s += jax.lax.dot_general(w_lo, x_hi, dn, preferred_element_type=jnp.float32)
-    return s
-
-
-def pack_block_diagonal(
-    codebooks: Array, compute_dtype=jnp.bfloat16, scale: float = 1.0
-) -> tuple[Array, Array, int]:
-    """Pack ``(m, k, ds)`` codebooks into the block-diagonal ``(d, m*kp)``
-    weight matrix plus the ``(1, m*kp)`` squared-norm row.
-
-    ``k`` is padded up to a sublane-aligned ``kp`` with ``+inf`` norms so
-    padded columns can never win the argmin.  ``scale`` multiplies the
-    weights only (the norms stay unscaled): packing ``2c`` lets the
-    kernels compute ``‖c‖² − s`` instead of ``‖c‖² − 2s``, saving one
-    elementwise pass over the score tensor (a power-of-two scale is exact
-    in both bf16 and f32).  Pack once per codebook; reuse across calls.
-    """
+def _layout(codebooks: Array, k_pad: int):
+    """Pack ``(m, k, ds)`` codebooks into the kernel's ``(m, n_depth,
+    depth, k_pad)`` dot operands (zero past row ``ds`` and column ``k``)
+    and ``(m, k_pad)`` centroid norms (``+inf`` past ``k``)."""
     m, k, ds = codebooks.shape
-    d = m * ds
-    kp = _round_up(k, 8)
-    W = jnp.zeros((d, m * kp), dtype=compute_dtype)
-    c_sqn = jnp.full((1, m * kp), jnp.inf, dtype=jnp.float32)
-    sq = jnp.einsum("mkd,mkd->mk", codebooks, codebooks, precision="highest")
-    for j in range(m):
-        W = jax.lax.dynamic_update_slice(
-            W, (codebooks[j] * scale).T.astype(compute_dtype), (j * ds, j * kp)
-        )
-        c_sqn = jax.lax.dynamic_update_slice(c_sqn, sq[j][None, :], (0, j * kp))
-    return W, c_sqn, kp
+    depth = next((c for c in (64, 32) if ds % c == 0), 16)
+    n_depth = -(-ds // depth)
+    cb = codebooks.astype(jnp.float32)
+    w = jnp.pad(cb, ((0, 0), (0, k_pad - k), (0, n_depth * depth - ds)))
+    w = w.reshape(m, k_pad, n_depth, depth).transpose(0, 2, 3, 1)
+    sqn = jnp.einsum("mkd,mkd->mk", cb, cb, precision="highest")
+    sqn = jnp.pad(sqn, ((0, 0), (0, k_pad - k)), constant_values=jnp.inf)
+    return w, sqn, depth
 
 
-def _encode_kernel(x_ref, wt_ref, csqn_ref, codes_ref, *,
-                   m, kp, groups, idx_mask, compute_dtype, matmul_precision):
-    """One grid step: encode a (block_n, d) row tile of instances.
+def _encode_kernel(x_ref, w_ref, sqn_ref, codes_ref, *, n, d, ds, block_n,
+                   depth, n_depth, k_tile, n_tiles, precision):
+    i = pl.program_id(0)
+    rows = pl.ds(i * block_n, block_n)
+    valid = i * block_n + jnp.arange(block_n, dtype=jnp.int32) < n
 
-    scores[(j, c), i] = codebook[j, c] . x[i, subvector j] via MXU
-    matmuls — the RHS contracts on its own feature dim (dimension_numbers
-    ``(1,), (1,)``), so the instance tile is consumed in natural row-major
-    layout with no transpose anywhere; per-subquantizer argmin via
-    packed-key sublane min.
+    def subquantizer(j, carry):
+        def slab(c):
+            start = j * ds + c * depth
+            in_x = start + jnp.arange(depth, dtype=jnp.int32) < d
+            return plgpu.load(
+                x_ref.at[rows, pl.ds(start, depth)],
+                mask=valid[:, None] & in_x[None, :], other=0.0,
+            )
 
-    The ``m`` subquantizers are processed in ``groups`` chunks so the live
-    ``(chunk*kp, block_n)`` score/key buffers stay within the VMEM budget
-    for large-``m``/large-``d`` configurations.
-    """
-    exact = compute_dtype == jnp.float32
-    x = x_ref[:].astype(compute_dtype)
-    if exact:
-        x_hi, x_mid, _ = trunc_split3_bf16(x)
-    bn = x.shape[0]
-    per = m // groups
-    rows = per * kp
-    for g in range(groups):
-        sl = slice(g * rows, (g + 1) * rows)
-        if exact:
-            s = scores_3pass(wt_ref[0, sl, :], wt_ref[1, sl, :], x_hi, x_mid)
-        else:
-            s = jax.lax.dot_general(
-                wt_ref[sl, :],
-                x,
-                dimension_numbers=(((1,), (1,)), ((), ())),
-                precision=matmul_precision,
-                preferred_element_type=jnp.float32,
-            )  # (rows, bn); W holds 2c, so s is already the doubled cross term
-        dists = csqn_ref[:].reshape(m * kp, 1)[g * rows:(g + 1) * rows] - s
-        # Monotonic int ordering of f32 (sign-flip), index in low bits.
-        ib = pltpu.bitcast(dists, jnp.int32)
-        c31 = jnp.int32(31)
-        c1 = jnp.int32(1)
-        key = ib ^ jax.lax.shift_right_logical(
-            jax.lax.shift_right_arithmetic(ib, c31), c1
-        )
-        seg_iota = jax.lax.broadcasted_iota(jnp.int32, (rows, 1), 0) % kp
-        key = (key & ~idx_mask) | seg_iota
-        mins = jnp.min(key.reshape(per, kp, bn), axis=1)  # (per, bn)
-        for j in range(per):
-            codes_ref[g * per + j, :] = mins[j] & idx_mask
+        # One slab stays in registers across the centroid tiles.  Deeper
+        # subvectors (ds > 64, e.g. a 768-d coarse quantizer) loop over
+        # their depth chunks, reloading each from L1/L2 per tile: unrolled,
+        # their operands would not fit in shared memory together.
+        first = slab(0) if n_depth == 1 else None
 
+        def tile(t, best_arg):
+            best, arg = best_arg
+            cols = pl.ds(t * k_tile, k_tile)
+            if n_depth == 1:
+                s = pl.dot(first, w_ref[j, 0, :, cols], precision=precision)
+            else:
+                s = lax.fori_loop(
+                    jnp.int32(0), jnp.int32(n_depth),
+                    lambda c, acc: acc + pl.dot(
+                        slab(c), w_ref[j, c, :, cols], precision=precision),
+                    jnp.zeros((block_n, k_tile), jnp.float32),
+                )
+            dist = sqn_ref[j, cols][None, :] - 2.0 * s
+            tmin = jnp.min(dist, axis=1)
+            targ = lax.argmin(dist, 1, jnp.int32) + t * k_tile
+            better = tmin < best  # strict: ties keep the earlier tile
+            return jnp.where(better, tmin, best), jnp.where(better, targ, arg)
 
-def _choose_tiling(m: int, kp: int, d: int, compute_itemsize: int,
-                   block_n: int | None, exact: bool = False,
-                   candidates: tuple = (2048, 1024, 512, 256, 128),
-                   ) -> tuple[int, int]:
-    """Pick (block_n, groups) so the kernel's live VMEM fits the ~14 MB
-    budget: resident W (m*kp, d) + x tile (block_n, d) f32 (+ the exact
-    mode's two bf16 x-splits) + ~3 transient (m*kp/groups, block_n)
-    f32/int32 buffers.  ``candidates`` orders the block_n preference —
-    kernels with more live buffers (the verify kernel) measure faster at
-    smaller tiles."""
-    budget = 14 * (1 << 20)
-    w_bytes = m * kp * d * compute_itemsize
-    candidates_bn = [block_n] if block_n else list(candidates)
-    for bn in candidates_bn:
-        x_bytes = bn * d * 4 + (2 * bn * d * 2 if exact else 0)
-        for groups in [g for g in range(1, m + 1) if m % g == 0]:
-            buf_bytes = (m // groups) * kp * bn * 4 * 3
-            if w_bytes + x_bytes + buf_bytes <= budget:
-                return bn, groups
-    raise ValueError(
-        f"no VMEM-feasible tiling for m={m}, k~{kp}, d={d}; "
-        "use the einsum path (reductive_tpu.pq.primitives.quantize_batch)"
-    )
+        init = (jnp.full((block_n,), jnp.inf, jnp.float32),
+                jnp.zeros((block_n,), jnp.int32))
+        _, arg = lax.fori_loop(jnp.int32(0), jnp.int32(n_tiles), tile, init)
+        plgpu.store(codes_ref.at[rows, j], arg.astype(codes_ref.dtype),
+                    mask=valid)
+        return carry
+
+    # int32 bounds keep the loop index the type of program_id's offsets
+    # (under jax_enable_x64 Python ints would make it int64).
+    lax.fori_loop(jnp.int32(0), jnp.int32(codes_ref.shape[1]), subquantizer, 0)
 
 
 @functools.partial(
-    jax.jit, static_argnames=("block_n", "dtype", "compute_dtype", "interpret")
+    jax.jit, static_argnames=("dtype", "block_n", "k_tile", "interpret")
 )
 def pq_encode(
     codebooks: Array,
     x: Array,
     *,
-    block_n: int | None = None,
     dtype=jnp.uint8,
-    compute_dtype=jnp.bfloat16,
+    block_n: int = 128,
+    k_tile: int = 64,
     interpret: bool = False,
 ) -> Array:
     """Encode ``(n, d)`` vectors to ``(n, m)`` codes with the fused kernel.
 
-    High-throughput serving counterpart of
-    :func:`reductive_tpu.pq.primitives.quantize_batch`.  With the default
-    ``compute_dtype=jnp.bfloat16``, distance cross terms are bfloat16
-    (f32 accumulation): ~0.7% of codes flip to a near-equidistant
-    neighbor vs the f32 path, changing reconstruction MSE by ~1e-5
-    relative (measured, m=16 k=256 Gaussian data).  Pass
-    ``compute_dtype=jnp.float32`` for near-exact agreement.
-
-    Args:
-      codebooks: ``(m, k, ds)`` centroid tensor.
-      x: ``(n, m * ds)`` instances.
-      block_n: instance rows per grid step; auto-tuned against the VMEM
-        budget when omitted (2048 for the flagship m=16 d=128 config).
-      dtype: output code dtype (validated against ``k``).
-      compute_dtype: matmul input dtype (bfloat16 = MXU throughput mode).
-      interpret: run in the Pallas interpreter (for CPU tests).
+    Same contract as :func:`reductive_tpu.pq.primitives.quantize_batch`
+    (first-index tie-break; f32 distances, here from three-pass TF32
+    dots).  ``block_n`` rows per program and ``k_tile`` centroids per
+    step are tuning knobs; ``interpret=True`` runs the
+    Pallas interpreter (CPU tests), where dots are plain f32.
     """
     from ..pq.primitives import check_code_dtype
 
@@ -249,278 +142,29 @@ def pq_encode(
             f"Quantizer and vector length mismatch: input has {d} columns, "
             f"quantizer reconstructs {m * ds}"
         )
-
-    exact = compute_dtype == jnp.float32
-    W, c_sqn, kp = pack_block_diagonal(codebooks, compute_dtype, scale=2.0)
-    Wt = W.T  # (m*kp, d)
-    if exact:
-        Wt = trunc_split2_bf16_stacked(Wt)  # (2, m*kp, d) bf16
-    # The exact mode's extra live splits measure faster on 1024-row tiles
-    # (47.2M vs 45.5M vec/s at the flagship shape on v5e); the bf16 mode
-    # keeps 2048 (156.4M vs 154.0M at 1024).
-    block_n, groups = _choose_tiling(
-        m, kp, d, jnp.dtype(compute_dtype).itemsize, block_n, exact=exact,
-        candidates=(1024, 2048, 512, 256, 128) if exact
-        else (2048, 1024, 512, 256, 128),
-    )
-
-    idx_bits = max(1, (kp - 1).bit_length())
-    idx_mask = (1 << idx_bits) - 1
-
+    k_pad = max(16, _next_pow2(k))
+    k_tile = min(k_tile, k_pad)
+    w, sqn, depth = _layout(codebooks, k_pad)
+    precision = (lax.Precision.HIGHEST if interpret
+                 else lax.DotAlgorithmPreset.TF32_TF32_F32_X3)
     kernel = functools.partial(
-        _encode_kernel,
-        m=m,
-        kp=kp,
-        groups=groups,
-        idx_mask=idx_mask,
-        compute_dtype=compute_dtype,
-        matmul_precision=None,
+        _encode_kernel, n=n, d=d, ds=ds, block_n=block_n, depth=depth,
+        n_depth=w.shape[1], k_tile=k_tile, n_tiles=k_pad // k_tile,
+        precision=precision,
     )
-    codes_t = pl.pallas_call(
+    return pl.pallas_call(
         kernel,
         grid=(pl.cdiv(n, block_n),),
-        in_specs=[
-            pl.BlockSpec((block_n, d), lambda i: (i, 0), memory_space=pltpu.VMEM),
-            (
-                pl.BlockSpec((2, m * kp, d), lambda i: (0, 0, 0), memory_space=pltpu.VMEM)
-                if exact
-                else pl.BlockSpec((m * kp, d), lambda i: (0, 0), memory_space=pltpu.VMEM)
-            ),
-            pl.BlockSpec((1, m * kp), lambda i: (0, 0), memory_space=pltpu.VMEM),
-        ],
-        out_specs=pl.BlockSpec((m, block_n), lambda i: (0, i), memory_space=pltpu.VMEM),
-        out_shape=jax.ShapeDtypeStruct((m, n), jnp.int32),
+        out_shape=jax.ShapeDtypeStruct((n, m), jnp.dtype(dtype)),
+        backend="triton",
+        compiler_params=plgpu.CompilerParams(num_warps=4, num_stages=2),
         interpret=interpret,
-    )(x, Wt, c_sqn)
-    return codes_t.T.astype(dtype)
+        name="pq_encode",
+    )(x.astype(jnp.float32), w, sqn)
 
 
-def _encode_verify_kernel(x_ref, wt_ref, csqn_ref, esq_ref, codes_ref,
-                          flags_ref, *, m, kp, groups, idx_mask, block_n):
-    """Exact-mode encode + per-row verification flags.
-
-    Identical 3-pass score/argmin math to :func:`_encode_kernel`'s exact
-    path, plus: the f32 top-2 margin of every (row, subquantizer) is
-    compared against a sound bound on the 3-pass split error
-    (``B_j = e_j * ||x_j||`` with ``e_j = 2^-14 * max_c ||2 c_jc||``
-    precomputed on the host).  A row is flagged when ANY subquantizer's
-    margin is within ``2B`` — only for those can the split error (or the
-    packed-key tie coarsening) have changed the argmin, so re-scoring
-    just the flagged rows with the exact einsum yields the bit-exact
-    f32 result (measured flag rate ~3% of rows at m=16, k=256 Gaussian).
-    """
-    i = pl.program_id(0)
-    x32 = x_ref[:]
-    x_hi, x_mid, _ = trunc_split3_bf16(x32.astype(jnp.float32))
-    bn = x32.shape[0]
-    d = x32.shape[1]
-    ds = d // m
-    # ||x_j||^2 per (subquantizer, row): selector matmul (m, d) @ (bn, d)^T.
-    sel = (
-        jax.lax.broadcasted_iota(jnp.int32, (m, d), 1) // ds
-        == jax.lax.broadcasted_iota(jnp.int32, (m, d), 0)
-    ).astype(jnp.float32)
-    xn2 = jax.lax.dot_general(
-        sel, x32 * x32, dimension_numbers=(((1,), (1,)), ((), ())),
-        preferred_element_type=jnp.float32,
-    )  # (m, bn)
-
-    per = m // groups
-    rows = per * kp
-    rowflag = jnp.zeros((1, bn), jnp.int32)
-    for g in range(groups):
-        sl = slice(g * rows, (g + 1) * rows)
-        s = scores_3pass(wt_ref[0, sl, :], wt_ref[1, sl, :], x_hi, x_mid)
-        dists = csqn_ref[:].reshape(m * kp, 1)[g * rows:(g + 1) * rows] - s
-        ib = pltpu.bitcast(dists, jnp.int32)
-        c31 = jnp.int32(31)
-        c1 = jnp.int32(1)
-        key = ib ^ jax.lax.shift_right_logical(
-            jax.lax.shift_right_arithmetic(ib, c31), c1
-        )
-        seg_iota = jax.lax.broadcasted_iota(jnp.int32, (rows, 1), 0) % kp
-        key = (key & ~idx_mask) | seg_iota
-        key3 = key.reshape(per, kp, bn)
-        kmins = jnp.min(key3, axis=1, keepdims=True)
-        onehot = key3 == kmins  # exactly one winner per (sq, row)
-        d3 = dists.reshape(per, kp, bn)
-        m1 = jnp.min(jnp.where(onehot, d3, jnp.inf), axis=1)  # dist AT winner
-        m2 = jnp.min(jnp.where(onehot, jnp.inf, d3), axis=1)  # best other
-        margin = m2 - m1  # negative if coarsened tie-break beat a lower dist
-        sm = margin * jnp.abs(margin)  # signed square: negatives always flag
-        bound = 4.0 * esq_ref[g * per:(g + 1) * per, :] * xn2[
-            g * per:(g + 1) * per, :
-        ]
-        flags = (sm <= bound).astype(jnp.int32)  # (per, bn)
-        rowflag = jnp.maximum(rowflag, jnp.max(flags, axis=0, keepdims=True))
-        mins = kmins.reshape(per, bn)
-        for j in range(per):
-            codes_ref[g * per + j, :] = mins[j] & idx_mask
-    flags_ref[0, :] = rowflag[0]
-
-
-@functools.partial(
-    jax.jit, static_argnames=("block_n", "dtype", "cap_frac", "interpret")
-)
-def pq_encode_verified(
-    codebooks: Array,
-    x: Array,
-    *,
-    block_n: int | None = None,
-    dtype=jnp.uint8,
-    cap_frac: float = 1 / 16,
-    interpret: bool = False,
-) -> Array:
-    """Bit-exact fused encode: the 3-pass exact kernel plus einsum
-    re-scoring of the rows whose top-2 margin falls within the split
-    error bound.  Measured 33.2M vec/s at the flagship 1M×128 shape
-    (vs 46.3M for the plain 3-pass mode whose residual 2^-17 error it
-    removes): the flag-margin kernel runs at 40M vec/s on 256-row tiles
-    and the subset re-encode is scatter-free (top_k compaction +
-    position-gather apply) — the subset stage always processes the
-    padded cap, so a smaller ``cap_frac`` (the fallback keeps
-    correctness at ANY flag rate) trims its fixed cost.
-
-    The plain exact kernel (``pq_encode(compute_dtype=jnp.float32)``)
-    carries ~2^-17 relative score error and 2^-15 packed-key tie
-    coarsening — 99.994% oracle agreement.  Here every row where that
-    error could possibly have changed an argmin is detected in-kernel
-    (sound margin bound; measured ~3% of rows at the flagship shape) and
-    re-encoded with the exact f32 einsum, making the output equal to
-    :func:`reductive_tpu.pq.primitives.quantize_batch` including its
-    first-index tie-breaks, at ~the 3-pass kernel's throughput.
-
-    ``cap_frac`` bounds the re-scored subset (padded gathers; duplicate
-    pad rows scatter identical values).  If the flagged count ever
-    exceeds the cap (pathological near-tie data), a fallback re-encodes
-    everything with the chunked einsum — correct at any flag rate.
-    """
-    from ..pq import primitives
-    from ..pq.primitives import check_code_dtype
-
-    check_code_dtype(codebooks, dtype)
-    m, k, ds = codebooks.shape
-    n, d = x.shape
-    if d != m * ds:
-        raise ValueError(
-            f"Quantizer and vector length mismatch: input has {d} columns, "
-            f"quantizer reconstructs {m * ds}"
-        )
-
-    W, c_sqn, kp = pack_block_diagonal(codebooks, jnp.float32, scale=2.0)
-    Wt = trunc_split2_bf16_stacked(W.T)
-    # Smaller row tiles than the plain kernel: the verify kernel keeps
-    # ~2x the live VMEM (onehot/m1/m2/margin next to scores/keys), and
-    # measured v5e throughput at the flagship shape is 40.3M vec/s at
-    # bn=256 vs 34.7M at the plain kernel's 2048 (Mosaic spills the
-    # larger tiles).
-    bn, groups = _choose_tiling(
-        m, kp, d, 4, block_n, exact=True, candidates=(256, 512, 1024, 2048, 128)
-    )
-    idx_bits = max(1, (kp - 1).bit_length())
-    idx_mask = (1 << idx_bits) - 1
-    # e_j^2 = (2^-14 * max_c ||2 c_jc||)^2: the squared split-error scale
-    # (3-pass residual ~2^-15.4 * ||2c|| * ||x||, with margin for the f32
-    # accumulation and the 2^-15 key coarsening).
-    cn = jnp.sqrt(jnp.einsum("mkd,mkd->mk", codebooks, codebooks,
-                             precision="highest"))
-    esq = ((2.0 ** -14) * 2.0 * jnp.max(cn, axis=1)) ** 2  # (m,)
-    esq = esq[:, None].astype(jnp.float32)
-
-    kernel = functools.partial(
-        _encode_verify_kernel, m=m, kp=kp, groups=groups, idx_mask=idx_mask,
-        block_n=bn,
-    )
-    del block_n  # the chosen bn is what matters below
-    codes_t, flags = pl.pallas_call(
-        kernel,
-        grid=(pl.cdiv(n, bn),),
-        in_specs=[
-            pl.BlockSpec((bn, d), lambda i: (i, 0), memory_space=pltpu.VMEM),
-            pl.BlockSpec((2, m * kp, d), lambda i: (0, 0, 0), memory_space=pltpu.VMEM),
-            pl.BlockSpec((1, m * kp), lambda i: (0, 0), memory_space=pltpu.VMEM),
-            pl.BlockSpec((m, 1), lambda i: (0, 0), memory_space=pltpu.VMEM),
-        ],
-        out_specs=[
-            pl.BlockSpec((m, bn), lambda i: (0, i), memory_space=pltpu.VMEM),
-            pl.BlockSpec((1, bn), lambda i: (0, i), memory_space=pltpu.VMEM),
-        ],
-        out_shape=[
-            jax.ShapeDtypeStruct((m, n), jnp.int32),
-            jax.ShapeDtypeStruct((1, n), jnp.int32),
-        ],
-        interpret=interpret,
-    )(x, Wt, c_sqn, esq)
-    codes = codes_t.T.astype(dtype)  # (n, m)
-
-    # Exact einsum re-encode of the flagged rows, chunked so the
-    # (chunk, m, k) distance transient stays ~250 MB.  Compaction is
-    # scatter-free: XLA TPU scatters serialize (measured ~6 ms for a
-    # 65k-row scatter at n=1M, and jnp.nonzero's internal scatter cost
-    # ~13 ms), so flagged rows are collected with top_k over the
-    # flag-masked negated iota (~2 ms) and the fixed codes are applied
-    # back with a cumsum-position gather + where instead of a scatter.
-    row_flag = flags[0] > 0
-    count = jnp.sum(row_flag)
-    chunk = 16384
-    # Round the cap UP to a chunk multiple: rounding down once cut the
-    # cap below a 5.8% measured flag rate at n=1e6 and silently tripped
-    # the full-fallback cliff (~80 ms).  A 4x mid-tier softens the cliff
-    # for moderately tie-heavy data before the everything-re-encode.
-    cap = min(max(chunk, -(-int(n * cap_frac) // chunk) * chunk), n)
-    cap2 = min(4 * cap, n)
-    pos = jnp.cumsum(row_flag.astype(jnp.int32)) - 1
-    iota = jax.lax.iota(jnp.int32, n)
-    masked = jnp.where(row_flag, -iota, jnp.int32(-n - 1))
-
-    def exact_codes(xs):
-        s = xs.shape[0]
-        pad = (-s) % chunk
-        xp = jnp.pad(xs, ((0, pad), (0, 0)))
-        out = jax.lax.map(
-            lambda xc: primitives.quantize_batch(codebooks, xc, dtype=jnp.int32),
-            xp.reshape(-1, chunk, d),
-        )
-        return out.reshape(-1, m)[:s].astype(dtype)
-
-    def fix_subset(c):
-        def go():
-            neg, _ = jax.lax.top_k(masked, c)
-            rows = -neg  # first `c` flagged rows, ascending; pads = n + 1
-            xs = jnp.take(x, rows, axis=0, mode="fill", fill_value=0)
-            oc = exact_codes(xs)  # (c, m); pad rows never applied below
-            fixed = jnp.take(oc, jnp.clip(pos, 0, c - 1), axis=0)
-            return jnp.where(row_flag[:, None], fixed, codes)
-        return go
-
-    return jax.lax.cond(
-        count <= cap,
-        fix_subset(cap),
-        lambda: jax.lax.cond(
-            count <= cap2,
-            fix_subset(cap2),
-            lambda: exact_codes(x),
-        ) if cap2 > cap else exact_codes(x),
-    )
-
-
-def assign_nearest(
-    centroids: Array,
-    x: Array,
-    *,
-    block_n: int | None = None,
-    compute_dtype=jnp.bfloat16,
-    interpret: bool = False,
-) -> Array:
-    """Nearest-centroid assignment via the fused kernel: the k-means assign
-    step (reference: ``src/kmeans.rs:133-159``) is PQ encode with a single
-    subquantizer."""
-    codes = pq_encode(
-        centroids[None, :, :],
-        x,
-        block_n=block_n,
-        dtype=jnp.int32,
-        compute_dtype=compute_dtype,
-        interpret=interpret,
-    )
-    return codes[:, 0]
+def assign_nearest(centroids: Array, x: Array) -> Array:
+    """Nearest-centroid assignment via the fused kernel: the k-means
+    assign step (reference: ``src/kmeans.rs:133-159``) is PQ encode with a
+    single subquantizer.  Returns ``(n,)`` int32."""
+    return pq_encode(centroids[None, :, :], x, dtype=jnp.int32)[:, 0]

@@ -2,16 +2,16 @@
 
 4-bit codes (``k <= 16`` — the reference's own benchmark configuration,
 ``/root/reference/benches/pq.rs:9-10`` uses 4-bit subquantizers) halve
-the code matrix: at 100M x m=24 that is 1.2 GB instead of 2.4 GB of HBM,
-doubling the corpus a chip can serve.  The byte layout matches the
+the code matrix: at 100M x m=24 that is 1.2 GB instead of 2.4 GB of
+device memory, doubling the corpus a card can serve.  The byte layout matches the
 host-side :func:`reductive_tpu.native.pack_u4` (even-index code in the
 low nibble, odd-index in the high nibble), so device-packed codes can be
 written straight to the native artifact format and vice versa.
 
 These are plain XLA ops (cheap elementwise + reshape); the ADC kernel
-consumes the *packed* matrix directly and unpacks nibbles in VMEM
-(:func:`reductive_tpu.ops.adc.adc_scores_kernel` with ``packed=True``),
-halving the code-side HBM traffic of a scoring sweep.
+consumes the *packed* matrix directly and splits the nibbles in
+registers (:func:`reductive_tpu.ops.adc.adc_scores_kernel` with
+``packed=True``), halving the code bytes a scoring sweep reads.
 """
 
 from __future__ import annotations

@@ -1,4 +1,4 @@
-"""Multi-chip scale-out: meshes, sharded training, and distributed encode.
+"""Multi-device scale-out: meshes, sharded training, and distributed encode.
 
 The reference is single-process — its only parallelism is a rayon thread
 pool over the ``m`` subquantizers plus threaded BLAS (see SURVEY.md §2).
@@ -6,8 +6,8 @@ This package supplies what the reference never had: SPMD scale-out over a
 ``jax.sharding.Mesh``:
 
 * **data parallelism** — the instance matrix sharded over the ``data``
-  axis; centroid statistics (one-hot sums + counts) reduced with ``psum``
-  over ICI each Lloyd's iteration.
+  axis; centroid statistics (sums + counts) reduced with ``psum`` across
+  devices each Lloyd's iteration.
 * **subquantizer (model) parallelism** — the ``m`` independent
   subquantizers sharded over the ``model`` axis; zero communication, the
   tensor-parallel analog for this domain.

@@ -1,23 +1,24 @@
-"""Multi-host (pod) initialization helpers.
+"""Multi-process initialization helpers.
 
-One process per host drives its local chips; `jax.distributed.initialize`
+One process per host drives its local cards; `jax.distributed.initialize`
 wires the processes into one global runtime, after which every entry in
-this package works unchanged — `jax.devices()` spans the pod, meshes built
-by :func:`reductive_tpu.parallel.make_mesh` cover all chips, and the psum'd
-centroid statistics ride ICI within a slice / DCN across slices.
+this package works unchanged — `jax.devices()` spans every process,
+meshes built by :func:`reductive_tpu.parallel.make_mesh` cover all cards,
+and the psum'd centroid statistics cross NVLink within a host and the
+network between hosts.
 
-Typical pod launch (same script on every host)::
+Typical launch (same script in every process)::
 
     from reductive_tpu.parallel import initialize_distributed, make_mesh
 
-    initialize_distributed()          # env-driven on Cloud TPU
-    mesh = make_mesh()                # 1-D data mesh over all pod chips
+    initialize_distributed("host0:1234", num_processes=2, process_id=rank)
+    mesh = make_mesh()                # 1-D data mesh over all cards
     pq = train_pq_chunked_sharded(key, shard, ..., mesh=mesh)
 
-On Cloud TPU the coordinator address / process count / process id are
-discovered from the TPU environment automatically; elsewhere pass them
-explicitly.  Encode-style jobs need no coordination at all — each host can
-run :func:`reductive_tpu.data.stream_encode_resumable` on its own corpus
+Pass the coordinator address, process count and process id explicitly
+unless the cluster's launcher lets ``jax.distributed.initialize`` discover
+them.  Encode-style jobs need no coordination at all — each host can run
+:func:`reductive_tpu.data.stream_encode_resumable` on its own corpus
 shard and restart independently (deterministic given the codebook
 artifact).
 """
@@ -33,39 +34,19 @@ __all__ = ["initialize_distributed"]
 
 _initialized = False
 
-# Environment variables that signal this process is part of a MULTI-host
-# deployment.  If one indicates more than one host and auto-discovery
-# still fails, silently falling back to single-process would make every
-# host train on its own shard alone and produce divergent models — so we
-# raise instead.  Signals that are also set on single-host workers
-# (TPU_WORKER_ID=0, a one-entry TPU_WORKER_HOSTNAMES) deliberately do
-# NOT trigger: a single-host deployment where the backend is already up
-# must keep the warn-and-continue behavior.
+# Environment variables that signal this process is part of a MULTI-
+# process deployment.  If one is set and auto-discovery still fails,
+# silently falling back to single-process would make every process train
+# on its own shard alone and produce divergent models — so we raise.
 _MULTIHOST_ENV_SIGNALS = (
-    "TPU_WORKER_HOSTNAMES",        # >1 comma-separated hosts
-    "MEGASCALE_NUM_SLICES",        # >1 slices
-    "MEGASCALE_COORDINATOR_ADDRESS",  # presence = cross-slice coordination
-    "JAX_COORDINATOR_ADDRESS",     # presence = explicit launch coordination
+    "JAX_COORDINATOR_ADDRESS",
     "COORDINATOR_ADDRESS",
 )
 
 
 def _multihost_intent() -> Optional[str]:
-    """The first environment signal indicating MULTI-host membership."""
-    hosts = os.environ.get("TPU_WORKER_HOSTNAMES", "")
-    if len([h for h in hosts.split(",") if h.strip()]) > 1:
-        return "TPU_WORKER_HOSTNAMES"
-    slices = os.environ.get("MEGASCALE_NUM_SLICES", "")
-    try:
-        if int(slices) > 1:
-            return "MEGASCALE_NUM_SLICES"
-    except ValueError:
-        pass
-    for name in (
-        "MEGASCALE_COORDINATOR_ADDRESS",
-        "JAX_COORDINATOR_ADDRESS",
-        "COORDINATOR_ADDRESS",
-    ):
+    """The first environment signal indicating multi-process membership."""
+    for name in _MULTIHOST_ENV_SIGNALS:
         if os.environ.get(name):
             return name
     return None
@@ -79,9 +60,9 @@ def initialize_distributed(
 ) -> None:
     """Idempotent wrapper around ``jax.distributed.initialize``.
 
-    Call once per process before touching devices.  With no arguments the
-    Cloud TPU environment supplies the topology; single-process runs (the
-    common local/test case) skip initialization entirely.
+    Call once per process before touching devices.  With no arguments
+    the cluster environment must supply the topology; single-process runs
+    (the common local/test case) skip initialization entirely.
     """
     global _initialized
     if _initialized:
@@ -104,7 +85,7 @@ def initialize_distributed(
             raise
         signal = _multihost_intent()
         if signal is not None:
-            # The environment says this host is part of a pod; a silent
+            # The environment says this process is part of a cluster; a silent
             # single-process fallback would mean every host trains on its
             # own shard alone and produces a divergent model.  Fail.
             raise RuntimeError(

@@ -10,7 +10,7 @@ iteration becomes an SPMD program:
   trainings are independent, so model parallelism costs zero
   communication;
 * the centroid update's one-hot sums and counts are **psum**-reduced over
-  ``data`` (riding ICI within a slice), after which the count-guarded
+  ``data`` (over NVLink between the cards of a host), after which the count-guarded
   divide happens replicated — numerically identical to the single-device
   path, so all golden tests transfer.
 
@@ -21,7 +21,7 @@ Two API styles are provided:
   inserts the collectives.
 * :func:`sharded_kmeans` / :func:`sharded_pq_train_step` — explicit
   ``shard_map`` + ``psum`` versions, used where collective placement must
-  be exact (and as the multi-chip dry-run entry).
+  be exact (and as the multi-device dry-run entry).
 """
 
 from __future__ import annotations
@@ -133,7 +133,7 @@ def sharded_pq_train_step(
     xs: Array, codebooks: Array, data_axis: str = "data", model_axis: str = "model"
 ) -> Tuple[Array, Array]:
     """One full PQ training step over a 2-D (data x model) mesh — the
-    multi-chip dry-run entry (call inside ``shard_map``).
+    multi-device dry-run entry (call inside ``shard_map``).
 
     ``xs`` is the local ``(n_local, m_local, ds)`` shard: instances split
     over ``data_axis``, subquantizers split over ``model_axis``.
@@ -161,7 +161,7 @@ def sharded_pq_train_step(
 
 
 # ---------------------------------------------------------------------------
-# Corpus-scale data-parallel training: fused stats kernel + psum
+# Corpus-scale data-parallel training: per-shard statistics + psum
 # ---------------------------------------------------------------------------
 
 
@@ -181,14 +181,13 @@ def _init_sharded_codebooks(x, key, *, m: int, k: int, projection=None):
 @functools.lru_cache(maxsize=None)
 def _chunked_sharded_step(
     mesh: Mesh, data_axis: str, chunk: int, use_kernel: bool,
-    compute_dtype, interpret: bool, has_projection: bool = False,
+    has_projection: bool = False,
 ):
     """Build (and cache) the jitted sharded chunked training loop for a
-    mesh/config.  Each device runs the fused assign+stats kernel on its
+    mesh/config.  Each device accumulates assignment statistics over its
     local instance shard; only the tiny ``(m, k, ds)`` sums and ``(m, k)``
-    counts cross ICI per iteration (psum) — 0.147 MB at the flagship
-    shape, independent of the corpus size, which is why data-parallel
-    scaling is essentially free (measured: ``benches/scaling.py``)."""
+    counts cross devices per iteration (psum) — 0.147 MB at the flagship
+    shape, independent of the corpus size."""
     from ..pq.train import (
         assign_stats_streamed,
         centroids_from_stats,
@@ -216,7 +215,6 @@ def _chunked_sharded_step(
             cb, _ = carry
             sums, counts = assign_stats_streamed(
                 x_local, cb, chunk=chunk, use_kernel=use_kernel,
-                compute_dtype=compute_dtype, interpret=interpret,
                 projection=projection if has_projection else None,
             )
             sums = jax.lax.psum(sums, data_axis)
@@ -243,15 +241,13 @@ def train_pq_chunked_sharded(
     data_axis: str = "data",
     chunk: int = 32768,
     use_kernel: Optional[bool] = None,
-    compute_dtype=jnp.float32,
-    interpret: bool = False,
     projection=None,
 ) -> Pq:
     """Corpus-scale data-parallel PQ training: instances sharded along
-    ``n`` over ``data_axis``, each shard swept by the fused assign+stats
-    kernel (:func:`reductive_tpu.ops.pq_assign_stats`), centroid
-    statistics psum-reduced over ICI, the count-guarded divide and loss
-    replicated.  Numerically equivalent to
+    ``n`` over ``data_axis``, each shard swept by
+    :func:`reductive_tpu.pq.train.assign_stats_streamed`, centroid
+    statistics psum-reduced across devices, the count-guarded divide and
+    loss replicated.  Numerically equivalent to
     :func:`reductive_tpu.pq.train.train_pq_chunked` on the gathered data
     (up to f32 summation order of the per-shard partial sums).
 
@@ -260,9 +256,8 @@ def train_pq_chunked_sharded(
     projection — the sharded GaussianOpq composition
     (``create_projection_matrix`` + this).
 
-    ``n`` must be divisible by the ``data_axis`` size.  Set
-    ``use_kernel=False`` (+ optionally ``interpret=True``) on CPU test
-    meshes.
+    ``n`` must be divisible by the ``data_axis`` size.  ``use_kernel``
+    is resolved by :func:`reductive_tpu.dispatch.use_kernel`.
     """
     n, d = instances.shape
     check_quantizer_invariants(
@@ -277,8 +272,9 @@ def train_pq_chunked_sharded(
             f"({mesh.shape[data_axis]} shards)"
         )
 
-    if use_kernel is None:
-        use_kernel = jax.default_backend() == "tpu"
+    from ..dispatch import use_kernel as choose
+
+    use_kernel = choose("encode", use_kernel)
     x = jax.device_put(instances, NamedSharding(mesh, P(data_axis, None)))
     # sumsq of the (rotated) data; rotation is fused into the reduction
     # under one jit — the rotated corpus is never held live (the training
@@ -289,8 +285,7 @@ def train_pq_chunked_sharded(
     sumsq = _streamed_sumsq(x, m, chunk=chunk, projection=projection)
 
     step = _chunked_sharded_step(
-        mesh, data_axis, chunk, use_kernel, compute_dtype, interpret,
-        projection is not None,
+        mesh, data_axis, chunk, use_kernel, projection is not None,
     )
     proj_arg = projection if projection is not None else jnp.zeros((d, d), x.dtype)
 
@@ -310,10 +305,7 @@ def train_pq_chunked_sharded(
 
 
 @functools.lru_cache(maxsize=None)
-def _opq_sharded_step(
-    mesh: Mesh, data_axis: str, chunk: int, use_kernel: bool,
-    compute_dtype, interpret: bool,
-):
+def _opq_sharded_step(mesh: Mesh, data_axis: str, chunk: int, use_kernel: bool):
     """Jitted data-parallel OPQ alternation loop: each device streams its
     instance shard, the centroid statistics and the Procrustes ``X^T
     X_hat`` cross-matrix are psum-reduced, and the SVD + updates run
@@ -333,8 +325,7 @@ def _opq_sharded_step(
             proj, cb = carry
             proj, cb, _ = _opq_iteration_chunked(
                 x_local, proj, cb, chunk=chunk, use_kernel=use_kernel,
-                compute_dtype=compute_dtype, axis_name=data_axis,
-                interpret=interpret,
+                axis_name=data_axis,
             )
             return proj, cb
 
@@ -355,8 +346,6 @@ def train_opq_chunked_sharded(
     data_axis: str = "data",
     chunk: int = 32768,
     use_kernel: Optional[bool] = None,
-    compute_dtype=jnp.float32,
-    interpret: bool = False,
 ) -> Pq:
     """Data-parallel corpus-scale OPQ: instances sharded along ``n``; per
     alternation each shard contributes psum'd centroid statistics (~2 MB)
@@ -376,8 +365,9 @@ def train_opq_chunked_sharded(
             f"({mesh.shape[data_axis]} shards)"
         )
 
-    if use_kernel is None:
-        use_kernel = jax.default_backend() == "tpu"
+    from ..dispatch import use_kernel as choose
+
+    use_kernel = choose("encode", use_kernel)
     x = jax.device_put(instances, NamedSharding(mesh, P(data_axis, None)))
     # Covariance + eigh are GSPMD over the sharded instances; the greedy
     # bucketing is host-side on the d eigenvalues (tiny, once).
@@ -385,9 +375,7 @@ def train_opq_chunked_sharded(
     keys = jax.random.split(key, n_subquantizers)
     codebooks = _init_opq_codebooks(x, keys, projection, k, ds)
 
-    step = _opq_sharded_step(
-        mesh, data_axis, chunk, use_kernel, compute_dtype, interpret
-    )
+    step = _opq_sharded_step(mesh, data_axis, chunk, use_kernel)
     projection, codebooks = step(x, projection, codebooks, n_iterations)
     return Pq(codebooks=codebooks, projection=projection)
 
@@ -396,23 +384,22 @@ def train_opq_chunked_sharded(
 # Multi-host streamed composition: >HBM corpora over a data-axis mesh.
 #
 # The single-host streamed trainers (reductive_tpu/pq/streamed.py) re-read
-# the corpus from disk once per Lloyd's iteration.  On a pod the corpus is
+# the corpus from disk once per Lloyd's iteration.  On a cluster the corpus is
 # also sharded across HOSTS: host h streams rows [h*n/H, (h+1)*n/H) of the
-# corpus file (on a real multi-process pod each process feeds its slice of
+# corpus file (in a real multi-process job each process feeds its slice of
 # the global batch via jax.make_array_from_process_local_data; in the
 # single-controller setting below the controller reads every slice and
 # lays the stacked (H, b, d) batch out over the data axis — the SPMD
 # program is identical).  Per-shard statistics accumulate device-locally;
-# the ONLY cross-host traffic is one (m, k, ds)+(m, k) psum per iteration
-# (0.147 MB at the flagship shape), exactly like the in-HBM sharded
-# trainer — so the streamed path scales the same way.
+# the ONLY cross-device traffic is one (m, k, ds)+(m, k) psum per
+# iteration (0.147 MB at the flagship shape), exactly like the in-HBM
+# sharded trainer.
 # ---------------------------------------------------------------------------
 
 
 @functools.lru_cache(maxsize=None)
 def _streamed_sharded_step(
-    mesh: Mesh, data_axis: str, use_kernel: bool, compute_dtype,
-    has_projection: bool,
+    mesh: Mesh, data_axis: str, use_kernel: bool, has_projection: bool,
 ):
     """Jitted per-batch accumulate: each device folds its local (1, b, d)
     slice of the global batch into its local (1, ...) accumulators via the
@@ -436,7 +423,6 @@ def _streamed_sharded_step(
             projection if has_projection else None,
             xb_local[0],
             use_kernel=use_kernel,
-            compute_dtype=compute_dtype,
         )
         return (s[None], c[None], q[None])
 
@@ -476,7 +462,6 @@ def train_pq_streamed_sharded(
     data_axis: str = "data",
     batch_size: int = 1 << 18,
     use_kernel: Optional[bool] = None,
-    compute_dtype=jnp.float32,
     projection: Optional[Array] = None,
     transfer_dtype=None,
     start: int = 0,
@@ -500,11 +485,10 @@ def train_pq_streamed_sharded(
     shapes per host).
     """
     from ..pq.streamed import _init_streamed_codebooks
+    from ..dispatch import use_kernel as choose
     from ..pq.train import centroids_from_stats, losses_from_stats
     import numpy as np
 
-    if use_kernel is None:
-        use_kernel = jax.default_backend() == "tpu"
     H = mesh.shape[data_axis]
     stop = reader.n if stop is None else min(stop, reader.n)
     n, d = stop - start, reader.dim
@@ -513,6 +497,7 @@ def train_pq_streamed_sharded(
     )
     m, k = n_subquantizers, 2 ** n_subquantizer_bits
     ds = d // m
+    use_kernel = choose("encode", use_kernel)
     if n % H != 0:
         raise ValueError(
             f"n={n} must divide evenly over data axis ({H} shards)"
@@ -525,13 +510,7 @@ def train_pq_streamed_sharded(
         else jnp.zeros((d, d), jnp.float32)
     )
     step = _streamed_sharded_step(
-        mesh, data_axis, use_kernel, compute_dtype, projection is not None
-    )
-    # The final partial batch (if any) runs the einsum step — same
-    # tail discipline as the single-host _stream_pass (a one-off Mosaic
-    # compile for the tail shape is never worth it).
-    step_tail = _streamed_sharded_step(
-        mesh, data_axis, False, compute_dtype, projection is not None
+        mesh, data_axis, use_kernel, projection is not None
     )
     reduce = _streamed_sharded_reduce(mesh, data_axis)
 
@@ -544,7 +523,7 @@ def train_pq_streamed_sharded(
         for off in range(0, per, batch_size):
             b = min(batch_size, per - off)
             # Controller-side stand-in for per-process local reads: on a
-            # real pod each process reads rows [start + h*per+off, +b)
+            # real multi-process job each process reads rows [start + h*per+off, +b)
             # itself.
             xb = np.stack(
                 [np.asarray(reader.read(start + h * per + off, b))
@@ -553,9 +532,7 @@ def train_pq_streamed_sharded(
             if transfer_dtype is not None:
                 xb = xb.astype(transfer_dtype)
             xb = jax.device_put(xb, x_sh)
-            acc = (step if (b == batch_size or not use_kernel) else step_tail)(
-                acc, cb, proj_arg, xb
-            )
+            acc = step(acc, cb, proj_arg, xb)
         return reduce(acc)
 
     best_cb, best_loss = None, None
@@ -582,27 +559,13 @@ def train_pq_streamed_sharded(
 def _stream_encode_sharded_step(
     mesh: Mesh, data_axis: str, dtype, use_kernel: bool, has_projection: bool
 ):
-    if use_kernel:
-        from ..ops.assign import pq_encode
+    from ..dispatch import encode
 
-        on_cpu = jax.default_backend() == "cpu"
-
-        def encode_one(codebooks, projection, x):
-            if has_projection:
-                x = jnp.dot(x, projection, precision="highest")
-            return pq_encode(
-                codebooks, x, dtype=dtype,
-                compute_dtype=jnp.float32 if on_cpu else jnp.bfloat16,
-                interpret=on_cpu,
-            )
-    else:
-        from ..pq import primitives
-
-        def encode_one(codebooks, projection, x):
-            x = x.astype(codebooks.dtype)
-            if has_projection:
-                x = jnp.dot(x, projection, precision="highest")
-            return primitives.quantize_batch(codebooks, x, dtype=dtype)
+    def encode_one(codebooks, projection, x):
+        x = x.astype(codebooks.dtype)
+        if has_projection:
+            x = jnp.dot(x, projection, precision="highest")
+        return encode(codebooks, x, dtype=dtype, use_kernel=use_kernel)
 
     @jax.jit
     @functools.partial(
@@ -639,8 +602,9 @@ def stream_encode_sharded(
     """
     import numpy as np
 
-    if use_kernel is None:
-        use_kernel = jax.default_backend() == "tpu"
+    from ..dispatch import use_kernel as choose
+
+    use_kernel = choose("encode", use_kernel)
     H = mesh.shape[data_axis]
     n, m = reader.n, pq.quantized_len
     if n % H != 0:
@@ -715,53 +679,38 @@ def encode_sharded(
     mesh: Mesh,
     data_axis: str = "data",
     dtype=jnp.uint8,
-    use_kernel: bool = False,
+    use_kernel: Optional[bool] = None,
 ) -> Array:
     """Distributed batch encode: ``x`` sharded along ``n``, codebooks
     replicated, codes returned with the same row sharding.  Encode is
-    embarrassingly parallel — zero collectives.
-
-    With ``use_kernel=True`` the fused Pallas kernel runs per shard via
-    ``shard_map`` (each device encodes its local rows).
+    embarrassingly parallel — zero collectives: each device encodes its
+    local rows under ``shard_map`` with the encode kernel or the einsum
+    (``use_kernel`` resolved by :func:`reductive_tpu.dispatch.use_kernel`).
     """
-    sharding = NamedSharding(mesh, P(data_axis, None))
-    x = jax.device_put(x, sharding)
+    from ..dispatch import use_kernel as choose
 
-    if use_kernel:
-        from ..ops.assign import pq_encode
+    use_kernel = choose("encode", use_kernel)
+    x = jax.device_put(x, NamedSharding(mesh, P(data_axis, None)))
+    return _encode_sharded_fn(mesh, data_axis, jnp.dtype(dtype), use_kernel)(pq, x)
 
-        # Interpret the kernel when running on the CPU test mesh (which
-        # also lacks bf16 x bf16 dots); compiled Mosaic + bf16 on real TPU.
-        on_cpu = jax.default_backend() == "cpu"
-        interpret = on_cpu
-        compute_dtype = jnp.float32 if on_cpu else jnp.bfloat16
 
-        @functools.partial(
-            jax.shard_map,
-            mesh=mesh,
-            in_specs=(P(None, None, None), P(data_axis, None)),
-            out_specs=P(data_axis, None),
-            check_vma=False,
-        )
-        def run(codebooks, x_local):
-            return pq_encode(
-                codebooks,
-                x_local,
-                dtype=dtype,
-                compute_dtype=compute_dtype,
-                interpret=interpret,
-            )
+@functools.lru_cache(maxsize=None)
+def _encode_sharded_fn(mesh: Mesh, data_axis: str, dtype, use_kernel: bool):
+    """Build (and cache) the jitted per-shard encode for a mesh/config —
+    a fresh closure per call would re-trace and re-compile every time."""
+    from ..dispatch import encode
 
-        codebooks = jax.device_put(
-            pq.codebooks, NamedSharding(mesh, P(None, None, None))
-        )
+    @jax.jit
+    @functools.partial(
+        jax.shard_map,
+        mesh=mesh,
+        in_specs=(P(), P(data_axis, None)),
+        out_specs=P(data_axis, None),
+        check_vma=False,
+    )
+    def run(pq, x_local):
         if pq.projection is not None:
-            x = x @ jax.device_put(
-                pq.projection, NamedSharding(mesh, P(None, None))
-            )
-        return run(codebooks, x)
+            x_local = jnp.dot(x_local, pq.projection, precision="highest")
+        return encode(pq.codebooks, x_local, dtype=dtype, use_kernel=use_kernel)
 
-    return jax.jit(
-        lambda p, x: p.quantize_batch(x, dtype=dtype),
-        out_shardings=sharding,
-    )(pq, x)
+    return run

@@ -1,6 +1,6 @@
 """Product quantization: models, primitives, and trainers.
 
-TPU-native counterpart of the reference's ``pq`` module tree
+Counterpart of the reference's ``pq`` module tree
 (reference: ``src/pq/mod.rs``).  Public surface:
 
 * :class:`~reductive_tpu.pq.model.Pq` — the quantizer model (codebooks +

@@ -1,6 +1,6 @@
 """The product-quantizer model: a JAX pytree holding codebooks + projection.
 
-TPU-native counterpart of the reference's ``Pq<A>`` struct (reference:
+Counterpart of the reference's ``Pq<A>`` struct (reference:
 ``src/pq/pq.rs:29-61``): the model state is exactly an optional ``(d, d)``
 projection and an ``(m, k, ds)`` codebook tensor.  Registered as a pytree
 so a ``Pq`` can flow through ``jit``/``vmap``/``shard_map`` and be donated,
@@ -94,27 +94,23 @@ class Pq:
     # -- encode (reference: src/pq/pq.rs:252-303)
 
     def quantize_batch(
-        self, x: Array, dtype=jnp.uint8, *, precision="highest", method: str = "exact"
+        self, x: Array, dtype=jnp.uint8, *, precision="highest",
+        use_kernel: Optional[bool] = None,
     ) -> Array:
         """Encode ``(n, d)`` vectors to ``(n, m)`` codes of ``dtype``.
 
-        ``method="exact"`` (default) uses the f32 einsum path;
-        ``method="kernel"`` routes through the fused Pallas kernel
-        (:func:`reductive_tpu.ops.assign.pq_encode`) — the bf16 serving
-        fast path, ~10x faster on TPU with ~0.7% near-tie code flips;
-        ``method="kernel-f32"`` is the kernel's f32-exact 3-pass mode
-        (~4x faster than einsum at scale, 99.994% agreement — flips only
-        ties finer than the packed-key coarsening).
+        ``use_kernel`` is resolved by :func:`reductive_tpu.dispatch.use_kernel`:
+        on a GPU the fused encode kernel
+        (:func:`reductive_tpu.ops.assign.pq_encode`) runs, which agrees
+        with the f32 einsum except on centroids equidistant to within f32
+        rounding; elsewhere the einsum at ``precision``.
         """
+        from .. import dispatch
+
         if self.projection is not None:
             x = jnp.dot(x, self.projection, precision=precision)
-        if method in ("kernel", "kernel-f32"):
-            from ..ops.assign import pq_encode
-
-            cd = jnp.float32 if method == "kernel-f32" else jnp.bfloat16
-            return pq_encode(self.codebooks, x, dtype=dtype, compute_dtype=cd)
-        if method != "exact":
-            raise ValueError(f"unknown quantize method {method!r}")
+        if dispatch.use_kernel("encode", use_kernel):
+            return dispatch.encode(self.codebooks, x, dtype=dtype, use_kernel=True)
         return primitives.quantize_batch(self.codebooks, x, dtype=dtype, precision=precision)
 
     def quantize_vector(self, x: Array, dtype=jnp.uint8, *, precision="highest") -> Array:
@@ -125,26 +121,11 @@ class Pq:
 
     # -- decode (reference: src/pq/pq.rs:305-348)
 
-    def reconstruct_batch(
-        self, codes: Array, *, precision="highest", method: str = "auto"
-    ) -> Array:
-        """Decode ``(n, m)`` codes to approximate ``(n, d)`` vectors.
-
-        ``method`` forwards to
-        :func:`reductive_tpu.pq.primitives.reconstruct_batch`
-        (``auto``/``onehot``/``gather`` — all bit-identical), plus three
-        fused-kernel routes: ``"kernel"`` (bit-exact 3-split decode
-        kernel), ``"kernel-fast"`` (single bf16 pass), and
-        ``"kernel-int8"`` (weight-only int8 — fastest, same ~2^-8
-        precision as bf16).
-        """
-        if method in ("kernel", "kernel-fast", "kernel-int8"):
-            from ..ops.decode import pq_decode
-
-            splits = {"kernel": 3, "kernel-fast": 1, "kernel-int8": "int8"}[method]
-            out = pq_decode(self.codebooks, codes, splits=splits)
-        else:
-            out = primitives.reconstruct_batch(self.codebooks, codes, method=method)
+    def reconstruct_batch(self, codes: Array, *, precision="highest") -> Array:
+        """Decode ``(n, m)`` codes to approximate ``(n, d)`` vectors (the
+        bit-exact row gather of
+        :func:`reductive_tpu.pq.primitives.reconstruct_batch`)."""
+        out = primitives.reconstruct_batch(self.codebooks, codes)
         if self.projection is not None:
             out = jnp.dot(out, self.projection.T, precision=precision)
         return out
@@ -162,7 +143,7 @@ class Pq:
 # reconstruct_batch_into, src/pq/primitives.rs:64,150 + traits.rs:109-141).
 #
 # The reference's *_into methods exist so a serving loop can reuse one
-# output buffer instead of allocating per call.  The TPU-idiomatic
+# output buffer instead of allocating per call.  The JAX-idiomatic
 # equivalent is **buffer donation**: the caller's ``out`` array is donated
 # to the jitted program, XLA aliases the result into its memory, and the
 # steady-state HBM high-water of a serving loop stays at one output buffer
@@ -170,47 +151,47 @@ class Pq:
 # ---------------------------------------------------------------------------
 
 
-@functools.partial(jax.jit, donate_argnums=(2,), static_argnames=("method", "dtype"))
-def _quantize_into(pq: Pq, x: Array, out: Array, method: str, dtype) -> Array:
+@functools.partial(jax.jit, donate_argnums=(2,), static_argnames=("use_kernel", "dtype"))
+def _quantize_into(pq: Pq, x: Array, out: Array, use_kernel, dtype) -> Array:
     del out  # donated: XLA aliases its buffer to the returned codes
-    return pq.quantize_batch(x, dtype=dtype, method=method)
+    return pq.quantize_batch(x, dtype=dtype, use_kernel=use_kernel)
 
 
-def quantize_batch_into(pq: Pq, x: Array, out: Array, *, method: str = "exact") -> Array:
+def quantize_batch_into(pq: Pq, x: Array, out: Array, *,
+                        use_kernel: Optional[bool] = None) -> Array:
     """Encode ``(n, d)`` vectors, reusing ``out``'s device memory.
 
     ``out`` must be an ``(n, m)`` device array of the desired code dtype;
     it is **donated** (its buffer is consumed — do not reuse the array
     object afterwards) and the returned codes alias it where the backend
-    supports donation.  The TPU analog of the reference's
+    supports donation.  The analog of the reference's
     ``quantize_batch_into`` (``src/pq/primitives.rs:64-104``).
+    ``use_kernel`` is as for :meth:`Pq.quantize_batch`.
     """
     n, m = x.shape[0], pq.quantized_len
     if tuple(out.shape) != (n, m):
         raise ValueError(f"out has shape {out.shape}, expected {(n, m)}")
-    return _quantize_into(pq, x, out, method, jnp.dtype(out.dtype))
+    return _quantize_into(pq, x, out, use_kernel, jnp.dtype(out.dtype))
 
 
-@functools.partial(jax.jit, donate_argnums=(2,), static_argnames=("method",))
-def _reconstruct_into(pq: Pq, codes: Array, out: Array, method: str) -> Array:
+@functools.partial(jax.jit, donate_argnums=(2,))
+def _reconstruct_into(pq: Pq, codes: Array, out: Array) -> Array:
     del out
-    return pq.reconstruct_batch(codes, method=method)
+    return pq.reconstruct_batch(codes)
 
 
-def reconstruct_batch_into(
-    pq: Pq, codes: Array, out: Array, *, method: str = "auto"
-) -> Array:
+def reconstruct_batch_into(pq: Pq, codes: Array, out: Array) -> Array:
     """Decode ``(n, m)`` codes, reusing ``out``'s device memory.
 
     ``out`` must be an ``(n, d)`` f32 device array; it is **donated** and
     the returned reconstruction aliases it where the backend supports
-    donation.  The TPU analog of the reference's ``reconstruct_batch_into``
+    donation.  The analog of the reference's ``reconstruct_batch_into``
     (``src/pq/primitives.rs:150-173``, ``traits.rs:109-117``).
     """
     n, d = codes.shape[0], pq.reconstructed_len
     if tuple(out.shape) != (n, d):
         raise ValueError(f"out has shape {out.shape}, expected {(n, d)}")
-    return _reconstruct_into(pq, codes, out, method)
+    return _reconstruct_into(pq, codes, out)
 
 
 def quantize_vector_into(pq: Pq, x: Array, out: Array) -> Array:
@@ -234,7 +215,7 @@ def reconstruct_into(pq: Pq, code: Array, out: Array) -> Array:
 
     ``out`` must be a ``(d,)`` f32 device array; it is **donated** and the
     returned vector aliases it where the backend supports donation.  The
-    single-vector counterpart of :func:`reconstruct_batch_into` — the TPU
+    single-vector counterpart of :func:`reconstruct_batch_into` — the
     analog of the reference's ``Reconstruct::reconstruct_into``
     (``src/pq/traits.rs:133-141``).
     """
@@ -247,10 +228,10 @@ def reconstruct_into(pq: Pq, code: Array, out: Array) -> Array:
 @functools.partial(jax.jit, donate_argnums=(2,), static_argnames=("dtype",))
 def _quantize_vec_into(pq: Pq, x: Array, out: Array, dtype) -> Array:
     del out  # donated: XLA aliases its buffer to the returned code row
-    return pq.quantize_batch(x[None, :], dtype=dtype, method="exact")[0]
+    return pq.quantize_vector(x, dtype=dtype)
 
 
 @functools.partial(jax.jit, donate_argnums=(2,))
 def _reconstruct_vec_into(pq: Pq, code: Array, out: Array) -> Array:
     del out
-    return pq.reconstruct_batch(code[None, :], method="auto")[0]
+    return pq.reconstruct_batch(code[None, :])[0]

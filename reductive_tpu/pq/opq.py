@@ -1,11 +1,11 @@
 """Optimized product quantization (Ge et al., 2013): learned rotations.
 
-TPU-native counterpart of the reference's ``Opq`` trainer (reference:
+Counterpart of the reference's ``Opq`` trainer (reference:
 ``src/pq/opq.rs``).  OPQ learns an orthonormal ``(d, d)`` projection that
 balances variance across the ``m`` subquantizers, alternating between
 codebook refinement and a Procrustes update of the rotation.
 
-Design differences from the reference, all TPU-motivated:
+Design differences from the reference, all for a device-resident program:
 
 * the eigendecomposition and SVD run **on device** through
   ``jnp.linalg.eigh``/``jnp.linalg.svd`` instead of LAPACK calls
@@ -133,9 +133,9 @@ def polar_orthogonalize(M: Array, iterations: int = 40) -> Array:
     once ``‖X‖₂ < √3``; normalizing by the Frobenius norm guarantees that.
     Small singular values first grow ×1.5 per step, so 40 iterations
     cover condition numbers up to ~1e7 — beyond what f32 SVD resolves
-    anyway.  Everything is a ``(d, d)`` MXU matmul, so on TPU this
-    replaces an ~11 ms ``jnp.linalg.svd`` (d = 128) with microseconds of
-    matmuls — the polar factor is unique for full-rank input, so the
+    anyway.  Everything is a ``(d, d)`` matmul, which replaces an
+    iterative ``jnp.linalg.svd`` with a fixed count of matmuls — the
+    polar factor is unique for full-rank input, so the
     result matches ``U V^T`` from an SVD to float tolerance.  A runtime
     orthogonality check re-orthonormalizes rank-deficient /
     ill-conditioned results through a QR completion (see inline comment).
@@ -155,9 +155,9 @@ def polar_orthogonalize(M: Array, iterations: int = 40) -> Array:
     # the inverse), and the completion of deficient directions is
     # arbitrary for Procrustes anyway.  QR re-orthonormalizes the
     # Newton-Schulz output (agreeing with it up to f32 noise when R is
-    # already orthogonal) and, unlike jnp.linalg.svd, compiles cheaply on
-    # TPU (the SVD branch alone took an OPQ trainer's compile from 25 s
-    # to 352 s); two polish steps tighten QR's result to f32 eps.
+    # already orthogonal) and compiles far more cheaply than a
+    # jnp.linalg.svd branch; two polish steps tighten QR's result to f32
+    # eps.
     err = jnp.max(jnp.abs(jnp.dot(R.T, R, precision="highest") - jnp.eye(M.shape[0])))
 
     def qr_route(R):
@@ -267,20 +267,16 @@ def train_opq(
         "projection update per iteration, jitted end-to-end)",
         n_iterations,
     )
-    from ..utils.callbacks import host_callbacks_supported
-
     projection, codebooks = _alternate(
         instances, projection, codebooks, n_iterations,
-        log_iterations=logger.isEnabledFor(logging.INFO)
-        and host_callbacks_supported(),
+        log_iterations=logger.isEnabledFor(logging.INFO),
     )
     return Pq(codebooks=codebooks, projection=projection)
 
 
 def _opq_iteration_chunked(
     x: Array, projection: Array, codebooks: Array, *,
-    chunk: int, use_kernel: bool, compute_dtype,
-    axis_name: Optional[str] = None, interpret: bool = False,
+    chunk: int, use_kernel: bool, axis_name: Optional[str] = None,
 ):
     """One OPQ alternation at corpus scale, streaming over ``n``.
 
@@ -288,13 +284,14 @@ def _opq_iteration_chunked(
     without ever materializing the rotated corpus, the ``(m, n, k)``
     distance tensor, or the reconstruction:
 
-    1. per-centroid sums/counts of the rotated data via the fused
-       assign+stats kernel (chunks rotated on the fly) → codebook update;
+    1. per-centroid sums/counts of the rotated data (chunks rotated on
+       the fly, :func:`reductive_tpu.pq.train.assign_stats_streamed`) →
+       codebook update;
     2. codes under the **updated** codebooks (the reference quantizes
        after the k-means step) and the Procrustes cross-matrix
        ``M = X^T X_hat`` accumulated per chunk as
-       ``x_chunk^T @ gather(codebooks, codes)`` — one full-depth MXU
-       matmul per chunk;
+       ``x_chunk^T @ gather(codebooks, codes)`` — one full-depth matmul
+       per chunk;
     3. ``R = U V^T`` from ``svd(M)`` (Ge et al., 2013, Eq. 7).
 
     With ``axis_name`` (inside ``shard_map``), ``x`` is this device's
@@ -302,18 +299,14 @@ def _opq_iteration_chunked(
     before the update/SVD — the data-parallel form; everything after the
     psums is replicated.
     """
+    from ..dispatch import encode
     from ..pq.train import assign_stats_streamed
-    from .. import ops
 
     n, d = x.shape
     m, k, ds = codebooks.shape
-    exact = compute_dtype == jnp.float32 or compute_dtype == "verified"
-    prec = "highest" if exact else None
 
     def rotate(xc):
-        # In throughput mode the rotation's bf16 rounding (~2^-9) is the
-        # same order as every other matmul in the pass.
-        return jnp.dot(xc, projection, precision="highest" if exact else None)
+        return jnp.dot(xc, projection, precision="highest")
 
     # Pass 1: k-means statistics on rotated chunks.
     def stats_body(carry, xc):
@@ -321,7 +314,6 @@ def _opq_iteration_chunked(
         rxc = rotate(xc)
         s2, c2 = assign_stats_streamed(
             rxc, codebooks, chunk=chunk, use_kernel=use_kernel,
-            compute_dtype=compute_dtype, interpret=interpret,
         )
         return (s + s2, c + c2), None
 
@@ -343,30 +335,10 @@ def _opq_iteration_chunked(
 
     # Pass 2: codes under the updated codebooks; accumulate M = X^T X_hat.
     def cross_body(carry, xc):
-        rxc = rotate(xc)
-        if use_kernel:
-            if compute_dtype == "verified":
-                codes = ops.pq_encode_verified(
-                    new_codebooks, rxc, dtype=jnp.int32, interpret=interpret,
-                )
-            else:
-                codes = ops.pq_encode(
-                    new_codebooks, rxc, dtype=jnp.int32,
-                    compute_dtype=compute_dtype, interpret=interpret,
-                )
-            # Fused decode — the one-hot einsum would materialize a
-            # (chunk, m, k) transient per scan step.  Exact mode gets the
-            # bit-exact 3-split; throughput mode uses one bf16 pass (the
-            # ~2^-9 reconstruction rounding is far below the Procrustes
-            # update's own bf16 noise and costs half the decode time).
-            rec = ops.pq_decode(
-                new_codebooks, codes, splits=3 if exact else 1,
-                interpret=interpret,
-            )
-        else:
-            codes = primitives.quantize_batch(new_codebooks, rxc, dtype=jnp.int32)
-            rec = primitives.reconstruct_batch(new_codebooks, codes, method="gather")
-        return carry + jnp.dot(xc.T, rec, precision=prec), None
+        codes = encode(new_codebooks, rotate(xc), dtype=jnp.int32,
+                       use_kernel=use_kernel)
+        rec = primitives.reconstruct_batch(new_codebooks, codes)
+        return carry + jnp.dot(xc.T, rec, precision="highest"), None
 
     M = jnp.zeros((d, d), jnp.float32)
     if n_main:
@@ -397,10 +369,10 @@ def _init_opq_codebooks(x, keys, projection, k: int, ds: int):
 
 @partial(
     jax.jit,
-    static_argnames=("chunk", "use_kernel", "compute_dtype", "log_iterations"),
+    static_argnames=("chunk", "use_kernel", "log_iterations"),
 )
 def _alternate_chunked(
-    x, projection, codebooks, n_iterations, *, chunk, use_kernel, compute_dtype,
+    x, projection, codebooks, n_iterations, *, chunk, use_kernel,
     total_sumsq=None, start_iteration=0, log_iterations: bool = False,
 ):
     n, d = x.shape
@@ -409,7 +381,6 @@ def _alternate_chunked(
         proj, cb = carry
         proj, cb, explained = _opq_iteration_chunked(
             x, proj, cb, chunk=chunk, use_kernel=use_kernel,
-            compute_dtype=compute_dtype,
         )
         if log_iterations and total_sumsq is not None:
             loss = (total_sumsq - explained) / jnp.float32(n * d)
@@ -429,7 +400,6 @@ def train_opq_chunked(
     *,
     chunk: int = 32768,
     use_kernel: Optional[bool] = None,
-    compute_dtype=jnp.float32,
     checkpoint_every: Optional[int] = None,
     checkpoint_path: Optional[str] = None,
     initial_model: Optional[Pq] = None,
@@ -438,8 +408,9 @@ def train_opq_chunked(
     :func:`train_opq` (reference: ``src/pq/opq.rs:40-100``; ``n_attempts``
     ignored as in the reference) with every pass over the data streamed —
     suitable for ``n`` where the rotated corpus or the ``(m, n, k)``
-    distance tensor cannot be materialized.  ``use_kernel=None`` selects
-    the fused kernels on TPU and the einsum fallback elsewhere.
+    distance tensor cannot be materialized.  ``use_kernel=None`` lets
+    :func:`reductive_tpu.dispatch.use_kernel` choose the encode kernel or
+    the einsum.
 
     Fault tolerance (the reference has none — SURVEY.md §5): with
     ``checkpoint_every=e`` and ``checkpoint_path``, the
@@ -450,8 +421,6 @@ def train_opq_chunked(
     loop does not retrace: the iteration count is a traced value, so one
     compilation serves every segment length.
     """
-    if use_kernel is None:
-        use_kernel = jax.default_backend() == "tpu"
     if checkpoint_every is not None:
         if checkpoint_path is None:
             raise ValueError("checkpoint_every requires checkpoint_path")
@@ -463,6 +432,9 @@ def train_opq_chunked(
     )
     k = 2 ** n_subquantizer_bits
     ds = d // n_subquantizers
+    from ..dispatch import use_kernel as choose
+
+    use_kernel = choose("encode", use_kernel)
 
     if initial_model is not None:
         if initial_model.projection is None:
@@ -479,16 +451,15 @@ def train_opq_chunked(
         codebooks = _init_opq_codebooks(instances, keys, projection, k, ds)
 
     logger.info(
-        "Running %d chunked OPQ iterations (fused-stats subquantizer "
+        "Running %d chunked OPQ iterations (streamed subquantizer "
         "update + streamed Procrustes accumulation per iteration)",
         n_iterations,
     )
     # Rotation-invariant total sum of squares (orthonormal R preserves
     # norms), computed once for the per-iteration loss trajectory.
-    from ..utils.callbacks import host_callbacks_supported
     from .train import _streamed_sumsq
 
-    log_it = logger.isEnabledFor(logging.INFO) and host_callbacks_supported()
+    log_it = logger.isEnabledFor(logging.INFO)
     total_sumsq = (
         _streamed_sumsq(instances, 1, chunk=chunk)[0] if log_it else None
     )
@@ -502,7 +473,7 @@ def train_opq_chunked(
         )
         projection, codebooks = _alternate_chunked(
             instances, projection, codebooks, seg,
-            chunk=chunk, use_kernel=use_kernel, compute_dtype=compute_dtype,
+            chunk=chunk, use_kernel=use_kernel,
             total_sumsq=total_sumsq, start_iteration=done,
             log_iterations=log_it,
         )
@@ -530,7 +501,6 @@ def train_gaussian_opq_chunked(
     *,
     chunk: int = 32768,
     use_kernel: Optional[bool] = None,
-    compute_dtype=jnp.float32,
 ) -> Pq:
     """Corpus-scale GaussianOpq (reference: ``src/pq/gaussian_opq.rs``):
     closed-form rotation once, then :func:`train_pq_chunked` with the
@@ -545,8 +515,7 @@ def train_gaussian_opq_chunked(
     projection = create_projection_matrix(instances, n_subquantizers)
     return train_pq_chunked(
         key, instances, n_subquantizers, n_subquantizer_bits, n_iterations,
-        n_attempts, chunk=chunk, use_kernel=use_kernel,
-        compute_dtype=compute_dtype, projection=projection,
+        n_attempts, chunk=chunk, use_kernel=use_kernel, projection=projection,
     )
 
 

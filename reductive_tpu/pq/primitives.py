@@ -1,6 +1,6 @@
 """Quantization primitives: encode and reconstruct against a codebook tensor.
 
-TPU-native counterpart of the reference's ``pub(crate)`` primitives
+Counterpart of the reference's ``pub(crate)`` primitives
 (reference: ``src/pq/primitives.rs``).  The reference loops sequentially
 over the ``m`` subquantizers, doing one ``(n, ds) x (ds, k)`` GEMM plus a
 scalar argmin per subquantizer (``src/pq/primitives.rs:90-103``), and
@@ -10,10 +10,9 @@ batched tensor programs over the ``m`` axis:
 
 * **encode** — reshape ``(n, d) → (n, m, ds)``, one batched einsum
   ``nmd,mkd->nmk`` for the cross terms, norm-expansion distances, argmin
-  over ``k``.  XLA lowers the einsum to a batched MXU matmul and fuses the
-  norm broadcasts + argmin into its epilogue.  (A Pallas kernel that keeps
-  the ``(n, m, k)`` distance tensor entirely in VMEM lives in
-  ``reductive_tpu.ops.assign``.)
+  over ``k``.  This is the plain version; the GPU kernel that never
+  writes the ``(n, m, k)`` distance tensor lives in
+  ``reductive_tpu.ops.assign``.
 * **decode** — one vectorized gather ``codebooks[j, codes[:, j]]`` over all
   rows at once, reshaped back to ``(n, d)``.
 
@@ -26,7 +25,6 @@ from __future__ import annotations
 
 import numpy as np
 
-import jax
 import jax.numpy as jnp
 from jax import Array
 
@@ -95,22 +93,14 @@ def quantize(codebooks: Array, x: Array, dtype=jnp.uint8, *, precision="highest"
     return quantize_batch(codebooks, x[None, :], dtype=dtype, precision=precision)[0]
 
 
-def reconstruct_batch(codebooks: Array, codes: Array, *, method: str = "auto") -> Array:
+def reconstruct_batch(codebooks: Array, codes: Array) -> Array:
     """Decode a batch of code rows back to approximate vectors.
 
     ``codes`` is ``(n, m)``; returns ``(n, m * ds)``.  Replaces the
     reference's per-row chunk-assign loop
-    (``src/pq/primitives.rs:150-173``) with one vectorized op.
-
-    Two bit-identical implementations (``method``):
-
-    * ``"onehot"`` — ``one_hot(codes) @ codebooks`` on the MXU with
-      ``precision="highest"``.  Exact because each one-hot row has a
-      single nonzero and bf16x6 splits represent f32 exactly; measured
-      5x faster than the gather on a v5e (47.7 vs 8.8 M vec/s at the
-      flagship shape — TPU gathers are scalar-ish).
-    * ``"gather"`` — ``take_along_axis`` row gather (fast on CPU).
-    * ``"auto"`` — onehot on TPU backends, gather elsewhere.
+    (``src/pq/primitives.rs:150-173``) with one vectorized row gather
+    ``codebooks[j, codes[:, j]]``: memory-bound, and bit-exact (each
+    output element is a copy of a codebook entry).
     """
     m, k, ds = codebooks.shape
     if codes.ndim != 2 or codes.shape[1] != m:
@@ -118,21 +108,10 @@ def reconstruct_batch(codebooks: Array, codes: Array, *, method: str = "auto") -
             f"Quantization length does not match number of subquantizers: "
             f"{codes.shape} vs m={m}"
         )
-    if method == "auto":
-        method = "gather" if jax.default_backend() == "cpu" else "onehot"
     idx = codes.astype(jnp.int32)
-    if method == "onehot":
-        onehot = jax.nn.one_hot(idx, k, dtype=codebooks.dtype)  # (n, m, k)
-        out = jnp.einsum(
-            "nmk,mkd->nmd", onehot, codebooks, precision="highest",
-            preferred_element_type=codebooks.dtype,
-        )
-        return out.reshape(codes.shape[0], m * ds)
-    if method == "gather":
-        gathered = jnp.take_along_axis(codebooks[None, :, :, :],
-                                       idx[:, :, None, None], axis=2)[:, :, 0, :]
-        return gathered.reshape(codes.shape[0], m * ds)
-    raise ValueError(f"unknown reconstruct method {method!r}")
+    gathered = jnp.take_along_axis(codebooks[None, :, :, :],
+                                   idx[:, :, None, None], axis=2)[:, :, 0, :]
+    return gathered.reshape(codes.shape[0], m * ds)
 
 
 def reconstruct(codebooks: Array, code: Array) -> Array:

@@ -1,6 +1,6 @@
 """Plain product-quantizer training: batched k-means over the subquantizer axis.
 
-TPU-native counterpart of the reference's ``TrainPq for Pq``
+Counterpart of the reference's ``TrainPq for Pq``
 (reference: ``src/pq/pq.rs:196-250``).  The reference fans the ``m``
 independent subquantizer k-means trainings out over a rayon thread pool
 (``src/pq/pq.rs:226-241``) and repeats each one ``n_attempts`` times,
@@ -8,7 +8,7 @@ keeping the minimum-loss attempt (``src/pq/pq.rs:168-188``).  Here both the
 ``m`` axis and the attempts axis are **batch axes of one jitted tensor
 program**: a double-``vmap`` over ``(n_attempts, m)`` runs every k-means
 simultaneously as a single ``(n_attempts, m, k, ds)`` computation — no host
-threads, no retracing across attempts, and the MXU sees large batched
+threads, no retracing across attempts, and the device sees large batched
 matmuls instead of ``m`` small sequential ones.
 
 RNG discipline: the reference seeds one XorShift stream per subquantizer
@@ -201,10 +201,10 @@ def train_pq_subspace(
 # ---------------------------------------------------------------------------
 #
 # The in-memory Lloyd's step materializes the (m, n, k) distance tensor —
-# 16 GB at the flagship shape with n = 1M, beyond one chip's HBM.  The
-# chunked step streams over n instead: per chunk, a fused assign (the
-# Pallas encode kernel keeps distances in VMEM) plus matmul-accumulated
-# sufficient statistics (per-centroid sums S and counts c).  The
+# 16 GB at the flagship shape with n = 1M.  The chunked step streams over
+# n instead: per chunk, an assignment (the GPU encode kernel never writes
+# the distances) plus sorted-segment-sum sufficient statistics
+# (per-centroid sums S and counts c).  The
 # reference's loss — MSE between instances and their *updated* centroids
 # under the old assignments (src/kmeans.rs:319-327) — never needs a second
 # pass over the data: with c'_j = S_j / n_j,
@@ -218,50 +218,48 @@ def train_pq_subspace(
 # semantics (src/kmeans.rs:181,194-196).
 
 
-def _chunk_stats(
-    codebooks: Array, xc: Array, use_kernel: bool, compute_dtype
-) -> tuple[Array, Array]:
-    """Per-centroid instance sums ``(m, k, ds)`` and counts ``(m, k)`` for
-    one ``(c, d)`` chunk of instances.
+def sorted_segment_sum(values: Array, segment: Array, num_segments: int
+                       ) -> tuple[Array, Array]:
+    """Sums ``(num_segments, w)`` of the ``(N, w)`` ``values`` rows in each
+    segment, and the int32 row count of each segment, with a summation
+    order fixed by the data alone.
 
-    A constant-1 column is appended to each subvector so one matmul yields
-    sums *and* counts; with bfloat16 inputs the counts stay exact (one-hot
-    and 1.0 are exact in bf16, accumulation is f32, and integer counts are
-    far below 2^24).
-    """
-    from .. import ops
+    A float scatter-add (``jax.ops.segment_sum``) lowers to atomics on a
+    GPU, so its bits change from run to run.  Here the rows are sorted by
+    segment (stable), summed by a segmented prefix scan, and each sum is
+    read at its segment's last row; the counts are an integer bincount,
+    exact in any order.  Empty segments sum to zero."""
+    order = jnp.argsort(segment, stable=True)
+    seg = segment[order]
+    start = jnp.concatenate([jnp.ones((1,), bool), seg[1:] != seg[:-1]])
+
+    def combine(a, b):
+        a_start, a_sum = a
+        b_start, b_sum = b
+        return a_start | b_start, jnp.where(b_start[:, None], b_sum, a_sum + b_sum)
+
+    _, running = jax.lax.associative_scan(combine, (start, values[order]))
+    counts = jnp.bincount(segment, length=num_segments).astype(jnp.int32)
+    last = jnp.maximum(jnp.cumsum(counts) - 1, 0)
+    sums = jnp.where((counts > 0)[:, None], running[last], 0)
+    return sums, counts
+
+
+def _chunk_stats(codebooks: Array, xc: Array, use_kernel: bool) -> tuple[Array, Array]:
+    """Per-centroid f32 instance sums ``(m, k, ds)`` and counts ``(m, k)``
+    for one ``(c, d)`` chunk: codes from the encode kernel or the einsum
+    (:func:`reductive_tpu.dispatch.encode`), then a
+    :func:`sorted_segment_sum` of each subvector into its
+    ``(subquantizer, centroid)`` segment — bit-reproducible run to run."""
+    from ..dispatch import encode
 
     m, k, ds = codebooks.shape
-    verified = compute_dtype == "verified"
-    if use_kernel and verified:
-        codes = ops.pq_encode_verified(codebooks, xc, dtype=jnp.int32)
-    elif use_kernel:
-        codes = ops.pq_encode(
-            codebooks, xc, dtype=jnp.int32, compute_dtype=compute_dtype
-        )
-    else:
-        from . import primitives
-
-        codes = primitives.quantize_batch(codebooks, xc, dtype=jnp.int32)
-    exact = verified or compute_dtype == jnp.float32
-    # f32 inputs in exact mode even for a low-precision corpus; the
-    # compute dtype (bf16) in throughput mode.
-    stats_dtype = jnp.float32 if exact else compute_dtype
-    onehot = jax.nn.one_hot(codes.T, k, dtype=stats_dtype)  # (m, c, k)
-    xs_m = jnp.moveaxis(xc.reshape(-1, m, ds), 1, 0)  # (m, c, ds)
-    xs_aug = jnp.concatenate(
-        [xs_m, jnp.ones((m, xs_m.shape[1], 1), xs_m.dtype)], axis=2
-    ).astype(stats_dtype)  # (m, c, ds+1)
-    stats = jnp.einsum(
-        "mck,mcs->mks",
-        onehot,
-        xs_aug,
-        precision="highest" if exact else None,
-        preferred_element_type=jnp.float32,
-    )
-    # Statistics stay f32 regardless of the corpus dtype: a bfloat16
-    # corpus must still get exact counts and f32-accumulated sums.
-    return stats[..., :ds], stats[..., ds]
+    c = xc.shape[0]
+    codes = encode(codebooks, xc, dtype=jnp.int32, use_kernel=use_kernel)
+    xs = xc.reshape(c * m, ds).astype(jnp.float32)
+    segment = codes + jnp.arange(m, dtype=jnp.int32)[None, :] * k
+    sums, counts = sorted_segment_sum(xs, segment.reshape(-1), m * k)
+    return sums.reshape(m, k, ds), counts.reshape(m, k).astype(jnp.float32)
 
 
 def centroids_from_stats(sums: Array, counts: Array, dtype) -> Array:
@@ -290,52 +288,22 @@ def assign_stats_streamed(
     codebooks: Array,
     *,
     chunk: int = 32768,
-    use_kernel: bool = True,
-    compute_dtype=jnp.float32,
-    interpret: bool = False,
+    use_kernel: bool = False,
     projection: Optional[Array] = None,
 ) -> tuple[Array, Array]:
     """Per-centroid f32 sums ``(m, k, ds)`` and counts ``(m, k)`` under
-    nearest-centroid assignment, never materializing anything O(n * k).
-
-    With ``use_kernel`` the fused Pallas kernel streams over ``n``
-    internally (grid over row blocks, VMEM-resident accumulators); the
-    fallback is a ``lax.scan`` over ``chunk``-row slices of the einsum
-    path.  With ``projection``, chunks are rotated on the fly before
-    assignment — the rotated corpus is never materialized.  Also the
-    per-shard building block of the sharded trainer
-    (``reductive_tpu.parallel``)."""
+    nearest-centroid assignment, never materializing anything O(n * k):
+    a ``lax.scan`` over ``chunk``-row slices of :func:`_chunk_stats`.
+    With ``projection``, chunks are rotated on the fly before assignment
+    — the rotated corpus is never materialized.  Also the per-shard
+    building block of the sharded trainer (``reductive_tpu.parallel``)."""
     n, d = x.shape
     m, k, ds = codebooks.shape
-    def kernel_stats(xc):
-        from .. import ops
-
-        if compute_dtype == "verified":
-            return ops.pq_assign_stats_verified(
-                codebooks, xc, interpret=interpret
-            )
-        return ops.pq_assign_stats(
-            codebooks, xc, compute_dtype=compute_dtype, interpret=interpret
-        )
-
-    if use_kernel and projection is None:
-        try:
-            return kernel_stats(x)
-        except ValueError:
-            # No VMEM-feasible kernel tiling (e.g. m=1 with a very large
-            # k, where the subquantizer axis cannot split): fall back to
-            # the chunked einsum path below.
-            use_kernel = False
 
     def stats(xc):
         if projection is not None:
             xc = jnp.dot(xc, projection, precision="highest")
-        if use_kernel:
-            try:
-                return kernel_stats(xc)
-            except ValueError:  # no VMEM-feasible tiling: einsum stats,
-                pass            # encode kernel (separately tiled) if it fits
-        return _chunk_stats(codebooks, xc, use_kernel, compute_dtype)
+        return _chunk_stats(codebooks, xc, use_kernel)
 
     def body(carry, xc):
         s, c = carry
@@ -358,15 +326,14 @@ def assign_stats_streamed(
     return sums, counts
 
 
-@partial(jax.jit, static_argnames=("chunk", "use_kernel", "compute_dtype"))
+@partial(jax.jit, static_argnames=("chunk", "use_kernel"))
 def lloyd_iteration_chunked(
     x: Array,
     codebooks: Array,
     sumsq: Array,
     *,
     chunk: int = 32768,
-    use_kernel: bool = True,
-    compute_dtype=jnp.float32,
+    use_kernel: bool = False,
     projection: Optional[Array] = None,
 ) -> tuple[Array, Array]:
     """One Lloyd's step over all ``m`` subquantizers, streaming ``x`` in
@@ -378,26 +345,13 @@ def lloyd_iteration_chunked(
     iterations.  Returns the updated ``(m, k, ds)`` codebooks and
     per-subquantizer f32 losses ``(m,)`` normalized by ``n * ds`` (the
     reference's element-count convention, src/kmeans.rs:359).
-
-    ``use_kernel`` selects the fused Pallas assign (TPU) vs the einsum
-    path (CPU tests).  ``compute_dtype`` trades exactness for speed:
-    ``float32`` (default) reproduces the in-memory iteration to float
-    tolerance; ``bfloat16`` is the MXU throughput mode (~6x faster) —
-    assignment cross terms and instance sums use bf16 inputs with f32
-    accumulation (counts stay exact; centroid relative error ~1e-4,
-    immaterial for Lloyd's convergence).  The kernel's packed-key argmin
-    coarsens distances by the low ``log2(k)`` mantissa bits, so near-exact
-    ties may resolve differently from the einsum path — measure-zero for
-    continuous data; ``"verified"`` removes even that: margin-flagged
-    rows are re-assigned with the exact einsum
-    (:func:`reductive_tpu.ops.pq_assign_stats_verified`), making cell
-    memberships equal the einsum oracle's on every row.
+    ``use_kernel`` selects the GPU encode kernel for the assignment
+    (:func:`reductive_tpu.dispatch.use_kernel`).
     """
     n, d = x.shape
     m, k, ds = codebooks.shape
     sums, counts = assign_stats_streamed(
-        x, codebooks, chunk=chunk, use_kernel=use_kernel,
-        compute_dtype=compute_dtype, projection=projection,
+        x, codebooks, chunk=chunk, use_kernel=use_kernel, projection=projection,
     )
     new_codebooks = centroids_from_stats(sums, counts, codebooks.dtype)
     losses = losses_from_stats(sums, counts, sumsq, n * ds)
@@ -414,7 +368,6 @@ def train_pq_chunked(
     *,
     chunk: int = 32768,
     use_kernel: Optional[bool] = None,
-    compute_dtype=jnp.float32,
     projection: Optional[Array] = None,
     checkpoint_every: Optional[int] = None,
     checkpoint_path: Optional[str] = None,
@@ -424,7 +377,7 @@ def train_pq_chunked(
     every Lloyd's iteration streams the instances chunk-by-chunk with the
     fused assign kernel, so training scales to any ``n`` that fits in HBM
     as raw data (and composes with the sharded data-parallel path for
-    corpora beyond one chip).
+    corpora beyond one card).
 
     With ``projection`` (an orthonormal ``(d, d)`` rotation), chunks are
     rotated on the fly — training happens in the rotated space without
@@ -435,8 +388,9 @@ def train_pq_chunked(
     centroids differ, shapes do not), keeping the per-subquantizer
     minimum-loss attempt like the reference (``src/pq/pq.rs:168-188``).
 
-    ``use_kernel=None`` (default) selects the fused Pallas kernel on TPU
-    and the einsum fallback elsewhere.  With ``checkpoint_every=e`` and
+    ``use_kernel=None`` (default) lets
+    :func:`reductive_tpu.dispatch.use_kernel` choose the encode kernel or
+    the einsum.  With ``checkpoint_every=e`` and
     ``checkpoint_path``, the current attempt's state is written atomically
     as an :mod:`reductive_tpu.io` artifact every ``e`` iterations (the
     reference has no fault handling at all, SURVEY.md §5); a killed job
@@ -445,8 +399,6 @@ def train_pq_chunked(
     single-attempt: pass ``n_attempts=1``).  Segmenting the loop does
     not retrace (iteration counts are traced values).
     """
-    if use_kernel is None:
-        use_kernel = jax.default_backend() == "tpu"
     if checkpoint_every is not None:
         if checkpoint_path is None:
             raise ValueError("checkpoint_every requires checkpoint_path")
@@ -459,14 +411,15 @@ def train_pq_chunked(
     m = n_subquantizers
     k = 2 ** n_subquantizer_bits
     ds = d // m
+    from ..dispatch import use_kernel as choose
+
+    use_kernel = choose("encode", use_kernel)
     logger.info(
         "Training %d PQ subquantizers chunked (k=%d, %d iterations, "
         "%d attempts, chunk=%d)",
         m, k, n_iterations, n_attempts, chunk,
     )
-    from ..utils.callbacks import host_callbacks_supported
-
-    log_it = logger.isEnabledFor(logging.INFO) and host_callbacks_supported()
+    log_it = logger.isEnabledFor(logging.INFO)
 
     sumsq = _streamed_sumsq(instances, m, chunk=chunk, projection=projection)
 
@@ -500,8 +453,7 @@ def train_pq_chunked(
             )
             cb, loss = _run_chunked_attempt(
                 instances, sumsq, cb, seg, projection,
-                chunk=chunk, use_kernel=use_kernel,
-                compute_dtype=compute_dtype, start_iteration=done,
+                chunk=chunk, use_kernel=use_kernel, start_iteration=done,
                 log_iterations=log_it,
             )
             done += seg
@@ -572,11 +524,11 @@ def _init_chunked_codebooks(key, x, projection, *, m: int, k: int):
 
 @partial(
     jax.jit,
-    static_argnames=("chunk", "use_kernel", "compute_dtype", "log_iterations"),
+    static_argnames=("chunk", "use_kernel", "log_iterations"),
 )
 def _run_chunked_attempt(
     x, sumsq, codebooks, n_iterations, projection, *, chunk, use_kernel,
-    compute_dtype, start_iteration=0, log_iterations: bool = False,
+    start_iteration=0, log_iterations: bool = False,
 ):
     """Lloyd's iterations of one chunked training attempt from given
     codebooks.  ``n_iterations`` and ``start_iteration`` are traced, so one
@@ -587,7 +539,7 @@ def _run_chunked_attempt(
         cb, _ = carry
         cb, losses = lloyd_iteration_chunked(
             x, cb, sumsq, chunk=chunk, use_kernel=use_kernel,
-            compute_dtype=compute_dtype, projection=projection,
+            projection=projection,
         )
         if log_iterations:
             jax.debug.callback(

@@ -7,13 +7,12 @@ of a product quantizer (Jégou et al., 2011, §IV): distances from a query
 to millions of compressed vectors are computed from per-subquantizer
 lookup tables without reconstructing anything.
 
-TPU mapping: the per-vector table lookup ``sum_j T[j, codes[i, j]]`` is a
-scalar-gather loop on CPUs; here it becomes a matmul.  The ``(nq, m, k)``
-tables flatten to ``(nq, m*k)`` and the code matrix becomes a (virtual)
-``(n, m*k)`` multi-hot matrix — their product is exactly the ADC score
-matrix, computed on the MXU.  The multi-hot never materializes in HBM:
-XLA fuses the one-hot construction into the dot operand within each
-``lax.map`` chunk.
+Two scorers compute the per-vector table lookup ``sum_j T[j, codes[i, j]]``:
+the GPU kernel (:func:`reductive_tpu.ops.adc.adc_scores_kernel`), which
+gathers the table entries straight into an accumulator, and the plain
+einsum scorer (:func:`adc_scores`), which restates the lookup as one
+``(nq, k) x (k, chunk)`` one-hot matmul per subquantizer.
+:func:`reductive_tpu.dispatch.use_kernel` picks between them.
 
 All functions honor the quantizer's projection: queries are rotated into
 codebook space first (codes were produced there too), and Euclidean
@@ -55,10 +54,9 @@ def _resolve_stream_chunk(
     if stream_chunk is not None:
         return stream_chunk
     # Bound the per-chunk (chunk, nq) score transient by the same 256 MB
-    # budget that triggers streaming: a flat 1M-row default OOM'd at
-    # nq=128 against the 104.9M-code corpus (512 MB scores + top_k
-    # doubles, double-buffered by the scan, next to 2.5 GB of resident
-    # codes on the 16 GB chip).
+    # budget that triggers streaming: a flat 1M-row chunk at nq=128 is
+    # 512 MB of scores, doubled by top_k and by the scan's double
+    # buffering.  The budget is a cap, not a rate.
     chunk = min(
         _DEFAULT_STREAM_CHUNK, max(1 << 16, _STREAM_SCORE_ELEMS // max(nq, 1))
     )
@@ -112,7 +110,7 @@ def _chunk_scores(tables_flat: Array, codes_chunk: Array, k: int) -> Array:
     """Scores for one chunk of database codes.
 
     ``tables_flat`` is ``(nq, m*k)``; ``codes_chunk`` is ``(c, m)``.  One
-    ``(nq, k) x (k, c)`` MXU matmul per subquantizer against the one-hot of
+    ``(nq, k) x (k, c)`` matmul per subquantizer against the one-hot of
     that subquantizer's code column — the transient one-hot is only
     ``(c, k)`` and the accumulation happens in f32.
     """
@@ -129,46 +127,28 @@ def _chunk_scores(tables_flat: Array, codes_chunk: Array, k: int) -> Array:
 
 
 def adc_scores_decode(
-    pq: Pq, queries: Array, codes: Array, *, splits=1, use_kernel: bool = True,
-    metric: str = "l2",
+    pq: Pq, queries: Array, codes: Array, *, metric: str = "l2",
 ) -> Array:
     """``(nq, n)`` approximate squared distances via **decode + one dense
     matmul**: ``||q - rec||^2 = ||q||^2 + ||rec||^2 - 2 q.rec``.
 
-    Cost model: the multihot scorer pays ``2 m kp`` FLOPs per (row,
-    query); this path pays a one-off ``2 m kp d`` per row (the decode)
-    plus ``2 d`` per (row, query) — so it wins only when the query batch
-    is large, ``nq ≳ d`` (offline batch scoring, kNN-graph
-    construction), where the decode amortizes and the scoring matmul is
-    dense.  At serving batch sizes (16–128 queries) the multihot kernel
-    is ~3x faster (measured, m=24, d=768, k=256); top-10 agreement
-    between the two is ~98% (both are ~2^-9-rounded scorings).
-    ``splits`` forwards to the decode kernel (falls back to 1 when the
-    weight splits outgrow VMEM at large ``m*k*d``).
+    Cost model: the table scorers pay ``m`` lookups per (row, query);
+    this path pays a one-off gather of ``d`` floats per row plus ``2 d``
+    FLOPs per (row, query) — so it pays off only when the query batch is
+    large, ``nq ≳ d`` (offline batch scoring, kNN-graph construction).
+    The ``q.rec`` matmul runs at ``precision="highest"`` (f32, not TF32).
     """
+    from .pq import primitives
+
     cb = pq.codebooks
-    m, k, ds = cb.shape
-    d = m * ds
     qr = (
         jnp.dot(queries, pq.projection, precision="highest")
         if pq.projection is not None
         else queries
     )
-    if use_kernel:
-        from .ops.decode import pq_decode
-
-        try:
-            rec = pq_decode(cb, codes, splits=splits)  # rotated space
-        except ValueError:
-            # Resident weight splits outgrow VMEM at large m*k*d: drop to
-            # the single-split serving decode (~2^-9, matching the bf16
-            # q.rec matmul below).
-            rec = pq_decode(cb, codes, splits=1)
-    else:
-        from .pq import primitives
-
-        rec = primitives.reconstruct_batch(cb, codes, method="gather")
-    qrec = jnp.dot(qr, rec.T, preferred_element_type=jnp.float32)
+    rec = primitives.reconstruct_batch(cb, codes)  # rotated space
+    qrec = jnp.dot(qr, rec.T, precision="highest",
+                   preferred_element_type=jnp.float32)
     if metric == "dot":
         return -qrec
     rec_sqn = jnp.sum(rec.astype(jnp.float32) ** 2, axis=1)  # (n,)
@@ -184,7 +164,7 @@ def adc_scores(
     ``tables`` is ``(nq, m, k)`` from :func:`adc_tables`; ``codes`` is the
     ``(n, m)`` encoded corpus.  Returns ``(nq, n)``.  The corpus is
     processed in ``chunk_size`` blocks under ``lax.map`` so the transient
-    multi-hot stays on-chip.
+    one-hot stays bounded.
     """
     nq, m, k = tables.shape
     n = codes.shape[0]
@@ -211,13 +191,12 @@ def adc_scores(
 @functools.partial(
     jax.jit,
     static_argnames=(
-        "top_k", "chunk", "chunk_size", "method", "splits", "packed", "metric"
+        "top_k", "chunk", "chunk_size", "method", "packed", "metric"
     ),
 )
 def _search_streamed_jit(
     pq: Pq, queries: Array, codes: Array, top_k: int, chunk: int,
-    chunk_size: int, method: str, splits: int, packed: bool = False,
-    metric: str = "l2",
+    chunk_size: int, method: str, packed: bool = False, metric: str = "l2",
 ):
     """Top-k search without materializing the ``(nq, n)`` score matrix:
     a ``lax.scan`` over corpus chunks keeps only a running ``(nq, top_k)``
@@ -231,20 +210,8 @@ def _search_streamed_jit(
     n = codes.shape[0]
 
     def score(codes_chunk):
-        if method == "kernel":
-            from .ops.adc import adc_scores_kernel
-
-            return adc_scores_kernel(
-                tables, codes_chunk, splits=splits, packed=packed
-            )
-        if method == "decode":
-            return adc_scores_decode(
-                pq, queries, codes_chunk, splits=splits,
-                use_kernel=jax.default_backend() == "tpu", metric=metric,
-            )
-        # adc_scores keeps its own inner chunking, so the one-hot
-        # transient stays bounded even for large stream chunks.
-        return adc_scores(tables, codes_chunk, chunk_size=chunk_size)
+        return _score(pq, queries, tables, codes_chunk, chunk_size, method,
+                      packed, metric)
 
     def merge(carry, chunk_scores, offset):
         best_negd, best_idx = carry
@@ -281,29 +248,46 @@ def _search_streamed_jit(
     return -best_negd, best_idx
 
 
+def _score(pq, queries, tables, codes, chunk_size, method, packed, metric):
+    """``(nq, n)`` scores of one block of codes by ``method``."""
+    if method == "kernel":
+        from .ops import adc
+
+        return adc.adc_scores_kernel(tables, codes, packed=packed)
+    if method == "decode":
+        return adc_scores_decode(pq, queries, codes, metric=metric)
+    return adc_scores(tables, codes, chunk_size=chunk_size)
+
+
 @functools.partial(
     jax.jit,
-    static_argnames=("top_k", "chunk_size", "method", "splits", "packed", "metric"),
+    static_argnames=("top_k", "chunk_size", "method", "packed", "metric"),
 )
 def _search_jit(
     pq: Pq, queries: Array, codes: Array, top_k: int, chunk_size: int,
-    method: str, splits: int, packed: bool = False, metric: str = "l2",
+    method: str, packed: bool = False, metric: str = "l2",
 ):
-    if method == "kernel":
-        from .ops.adc import adc_scores_kernel
-
-        tables = adc_tables(pq, queries, metric=metric)
-        scores = adc_scores_kernel(tables, codes, splits=splits, packed=packed)
-    elif method == "decode":
-        scores = adc_scores_decode(
-            pq, queries, codes, splits=splits,
-            use_kernel=jax.default_backend() == "tpu", metric=metric,
-        )
-    else:
-        tables = adc_tables(pq, queries, metric=metric)
-        scores = adc_scores(tables, codes, chunk_size=chunk_size)
+    tables = (
+        adc_tables(pq, queries, metric=metric) if method != "decode" else None
+    )
+    scores = _score(pq, queries, tables, codes, chunk_size, method, packed,
+                    metric)
     neg_dists, indices = jax.lax.top_k(-scores, top_k)
     return -neg_dists, indices
+
+
+def _resolve_method(method: str, codes: Array, packed: bool) -> str:
+    """``"auto"`` → the ADC kernel where
+    :func:`reductive_tpu.dispatch.use_kernel` picks it, else the einsum
+    scorer; explicit methods pass through after validation."""
+    if method == "auto":
+        from .dispatch import use_kernel
+
+        kernel = use_kernel("adc", codes_dtype=codes.dtype, packed=packed)
+        method = "kernel" if kernel else "einsum"
+    if method not in ("einsum", "kernel", "decode"):
+        raise ValueError(f"unknown search method {method!r}")
+    return method
 
 
 @functools.partial(jax.jit, static_argnames=("top_k", "metric"))
@@ -360,7 +344,6 @@ def search(
     *,
     chunk_size: int = 16384,
     method: str = "auto",
-    splits: int = 2,
     stream_chunk: Optional[int] = None,
     packed: bool = False,
     refine_with: Optional[Array] = None,
@@ -378,19 +361,17 @@ def search(
     unit sphere.  :func:`reductive_tpu.ivf.ivf_search` accepts the same
     ``metric`` (IVF-IP, FAISS ``METRIC_INNER_PRODUCT`` analog).
 
-    ``method="auto"`` (default) scores through the fused multi-hot
-    Pallas kernel (:func:`reductive_tpu.ops.adc.adc_scores_kernel`) on
-    TPU whenever the codes are u8/packed-u4 — ~1.4x faster at 16
-    queries, ~8x more efficient per query at 128 (full MXU lane
-    utilization), and ~20x on huge streamed corpora — and falls back to
-    the einsum scorer elsewhere (CPU, wide code dtypes).  Force
-    ``method="einsum"`` for platform-identical rankings (the kernel's
-    bf16 split tables can flip near-equidistant neighbors vs the f32
-    einsum scorer); ``splits`` trades kernel table precision for speed.
+    ``method="auto"`` (default) scores through the GPU lookup-table
+    kernel (:func:`reductive_tpu.ops.adc.adc_scores_kernel`) on a GPU
+    whenever the codes are u8/packed-u4, and through the einsum scorer
+    elsewhere (CPU, wide code dtypes); the choice is
+    :func:`reductive_tpu.dispatch.use_kernel`'s.  Both sum the same f32
+    table entries, so they agree up to f32 summation order.
+    ``method="decode"`` reconstructs and scores with one dense matmul.
 
     ``packed=True`` searches a **packed-u4** corpus (``(n, m/2)`` bytes,
     :func:`reductive_tpu.ops.pack_u4_codes`; requires ``k <= 16`` and
-    ``method="kernel"``) — half the code HBM, twice the corpus per chip.
+    ``method="kernel"``) — half the code bytes, twice the corpus per card.
 
     ``refine_with`` (an ``(n, d)`` device-resident matrix of the original
     vectors, or a ``VecsReader``-like object fetching candidate rows from
@@ -418,20 +399,7 @@ def search(
         raise ValueError(
             f"top_k={top_k} exceeds corpus size {codes.shape[0]}"
         )
-    if method == "auto":
-        # Default to the fused ADC kernel wherever it applies: on the
-        # 104.9M-code config-#5 corpus the streamed einsum scorer
-        # measured 0.67G pairs/s vs the kernel's ~13G at m=24 — a 20x
-        # default-path penalty.  The kernel consumes u8 (or packed-u4)
-        # codes; anything else keeps the einsum scorer.
-        method = (
-            "kernel"
-            if jax.default_backend() == "tpu"
-            and (packed or codes.dtype == jnp.uint8)
-            else "einsum"
-        )
-    if method not in ("einsum", "kernel", "decode"):
-        raise ValueError(f"unknown search method {method!r}")
+    method = _resolve_method(method, codes, packed)
     if metric not in ("l2", "dot"):
         raise ValueError(f"unknown metric {metric!r} (expected 'l2' or 'dot')")
     if refine_with is not None:
@@ -449,8 +417,7 @@ def search(
         r = min(top_k * refine_factor, codes.shape[0])
         _, cand_idx = search(
             pq, queries, codes, r, chunk_size=chunk_size, method=method,
-            splits=splits, stream_chunk=stream_chunk, packed=packed,
-            metric=metric,
+            stream_chunk=stream_chunk, packed=packed, metric=metric,
         )
         return _refine_jit(queries, refine_with, cand_idx, top_k, metric)
     if packed and method != "kernel":
@@ -464,28 +431,13 @@ def search(
         pq.reconstructed_len,
     )
     if stream_chunk is not None:
-        one = lambda q: _search_streamed_jit(
-            pq, q, codes, top_k, stream_chunk, chunk_size, method, splits,
-            packed, metric
+        return _search_streamed_jit(
+            pq, queries, codes, top_k, stream_chunk, chunk_size, method,
+            packed, metric,
         )
-    else:
-        one = lambda q: _search_jit(
-            pq, q, codes, top_k, chunk_size, method, splits, packed, metric
-        )
-    # The ADC kernel keeps its table splits resident in VMEM, which caps
-    # the per-call query batch (derived from the kernel's own VMEM-fit
-    # arithmetic); queries are independent, so batch them.
-    if method == "kernel":
-        from .ops.adc import max_query_batch
-
-        qb = max_query_batch(pq.n_subquantizers, pq.n_quantizer_centroids, splits)
-        if queries.shape[0] > qb:
-            parts = [one(queries[i : i + qb]) for i in range(0, queries.shape[0], qb)]
-            return (
-                jnp.concatenate([p[0] for p in parts]),
-                jnp.concatenate([p[1] for p in parts]),
-            )
-    return one(queries)
+    return _search_jit(
+        pq, queries, codes, top_k, chunk_size, method, packed, metric
+    )
 
 
 def search_sharded(
@@ -498,12 +450,11 @@ def search_sharded(
     data_axis: str = "data",
     chunk_size: int = 16384,
     method: str = "auto",
-    splits: int = 2,
     packed: bool = False,
     metric: str = "l2",
     stream_chunk: Optional[int] = None,
 ) -> Tuple[Array, Array]:
-    """Multi-chip exhaustive ADC search: the code matrix sharded over
+    """Multi-device exhaustive ADC search: the code matrix sharded over
     ``data_axis``, queries replicated, per-device local top-k merged by
     an all-gather (the same merge as
     :func:`reductive_tpu.ivf.ivf_search_sharded`).
@@ -516,20 +467,11 @@ def search_sharded(
     zero codes up to the next multiple; the padded rows are masked out of
     the merge (score ``+inf``, id ``-1``), so results still equal
     single-device :func:`search`.  All :func:`search` scoring options
-    (``method``/``splits``/``packed``/``metric``/``stream_chunk``) apply
-    per shard.
+    (``method``/``packed``/``metric``/``stream_chunk``) apply per shard.
     """
     if top_k <= 0:
         raise ValueError("top_k must be >= 1")
-    if method == "auto":  # same resolution rule as search()
-        method = (
-            "kernel"
-            if jax.default_backend() == "tpu"
-            and (packed or codes.dtype == jnp.uint8)
-            else "einsum"
-        )
-    if method not in ("einsum", "kernel", "decode"):
-        raise ValueError(f"unknown search method {method!r}")
+    method = _resolve_method(method, codes, packed)
     if metric not in ("l2", "dot"):
         raise ValueError(f"unknown metric {metric!r} (expected 'l2' or 'dot')")
     n = codes.shape[0]
@@ -548,39 +490,24 @@ def search_sharded(
         )
     from jax.sharding import NamedSharding, PartitionSpec as P
 
-    # The same guards search() applies, evaluated at the per-shard scale:
+    # The same guard search() applies, evaluated at the per-shard scale:
     # auto-streaming once the local (nq, n/n_shards) score matrix would
-    # exceed the dense budget, and the fused kernel's VMEM-derived query
-    # batching (queries are independent, so the batching happens out here
-    # and each batch runs the whole sharded program).
+    # exceed the dense budget.
     stream_chunk = _resolve_stream_chunk(
         queries.shape[0], n // n_shards, stream_chunk, method,
         pq.reconstructed_len,
     )
     codes = jax.device_put(codes, NamedSharding(mesh, P(data_axis, None)))
     run = _search_sharded_fn(
-        mesh, data_axis, top_k, chunk_size, method, splits, packed, metric,
+        mesh, data_axis, top_k, chunk_size, method, packed, metric,
         stream_chunk, n_true,
     )
-    if method == "kernel":
-        from .ops.adc import max_query_batch
-
-        qb = max_query_batch(pq.n_subquantizers, pq.n_quantizer_centroids, splits)
-        if queries.shape[0] > qb:
-            parts = [
-                run(pq, queries[i : i + qb], codes)
-                for i in range(0, queries.shape[0], qb)
-            ]
-            return (
-                jnp.concatenate([p[0] for p in parts]),
-                jnp.concatenate([p[1] for p in parts]),
-            )
     return run(pq, queries, codes)
 
 
 @functools.lru_cache(maxsize=None)
 def _search_sharded_fn(mesh, data_axis: str, top_k: int, chunk_size: int,
-                       method: str, splits, packed: bool, metric: str,
+                       method: str, packed: bool, metric: str,
                        stream_chunk, n_true=None):
     """Build (and cache) the jitted sharded exhaustive search for a
     mesh/config — a fresh closure per call would re-trace every time."""
@@ -599,12 +526,11 @@ def _search_sharded_fn(mesh, data_axis: str, top_k: int, chunk_size: int,
         if stream_chunk is not None:
             d_loc, i_loc = _search_streamed_jit(
                 pq, q, codes_local, top_k, stream_chunk, chunk_size,
-                method, splits, packed, metric,
+                method, packed, metric,
             )
         else:
             d_loc, i_loc = _search_jit(
-                pq, q, codes_local, top_k, chunk_size, method, splits,
-                packed, metric,
+                pq, q, codes_local, top_k, chunk_size, method, packed, metric,
             )
         # Local row offsets -> global corpus rows.
         shard = jax.lax.axis_index(data_axis)

@@ -1,6 +1,6 @@
 """Utilities: profiling, timing, and benchmark helpers."""
 
-from .callbacks import host_callbacks_supported
-from .profiling import benchmark, device_sync, trace
+from .cache import enable_compile_cache
+from .profiling import benchmark, trace
 
-__all__ = ["trace", "device_sync", "benchmark", "host_callbacks_supported"]
+__all__ = ["trace", "benchmark", "enable_compile_cache"]

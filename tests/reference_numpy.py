@@ -246,3 +246,17 @@ def avg_euclidean_loss(
     if projection is not None:
         rec = rec @ projection.T
     return float(np.mean(np.sqrt(np.sum((x - rec) ** 2, axis=1))))
+
+
+def adc_distances(
+    codebooks: np.ndarray, queries: np.ndarray, codes: np.ndarray, metric: str
+) -> np.ndarray:
+    """``(nq, n)`` ADC scores as distances to the reconstructions:
+    squared Euclidean for ``"l2"``, negated inner product for ``"dot"``
+    (the library's ascending-is-best convention)."""
+    rec = reconstruct_batch(codebooks, codes)
+    if metric == "dot":
+        return -(queries.astype(np.float64) @ rec.astype(np.float64).T)
+    return squared_euclidean_distance(
+        queries.astype(np.float64), rec.astype(np.float64)
+    )

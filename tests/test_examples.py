@@ -8,6 +8,18 @@ import runpy
 import sys
 from pathlib import Path
 
+import jax
+import pytest
+
+
+@pytest.fixture(autouse=True)
+def _keep_compile_cache_config():
+    """The entry scripts turn on the persistent compile cache; keep that
+    from leaking into the tests that share this worker process."""
+    before = jax.config.jax_compilation_cache_dir
+    yield
+    jax.config.update("jax_compilation_cache_dir", before)
+
 
 def test_pipeline_smoke(capsys, monkeypatch):
     root = Path(__file__).resolve().parent.parent
@@ -27,11 +39,11 @@ def test_pipeline_smoke(capsys, monkeypatch):
 
 
 def test_scaling_real_path_smoke(capsys, monkeypatch, tmp_path):
-    # The --real branch of benches/scaling.py is written for a pod, where
-    # jax.devices() is the real mesh.  Under the conftest-forced 8-device
+    # The --real branch of benches/scaling.py is written for real cards,
+    # where jax.devices() is the real mesh.  Under the conftest's 8-device
     # virtual CPU mesh it executes the identical code path (real key
-    # names, real reps schedule), so a pod run cannot be its first-ever
-    # execution.  --max-devices keeps the smoke fast.
+    # names, real reps schedule), so a multi-card run cannot be its
+    # first-ever execution.  --max-devices keeps the smoke fast.
     import json
 
     root = Path(__file__).resolve().parent.parent

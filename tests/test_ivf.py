@@ -7,7 +7,9 @@ import jax
 import jax.numpy as jnp
 
 from reductive_tpu import train_pq
-from reductive_tpu.ivf import IvfPq, build_ivf, ivf_search, train_ivf_pq
+from reductive_tpu.ivf import (
+    IvfPq, build_ivf, ivf_search, ivf_search_sharded, train_ivf_pq,
+)
 
 
 def clustered_data(key, n_clusters=16, per=200, d=16, spread=0.15):
@@ -823,9 +825,13 @@ def test_packed_cells_sharded_search():
 
 
 def test_device_placement_bit_identical_unbounded():
-    """placement="device" with capacity=None: bit-identical cells to the
-    host path (same _coarse_topk argmins, same corpus-order slot
-    numbering)."""
+    """capacity=None builds on device whatever ``placement`` says: each
+    row in its nearest cell (numpy reference), cells in corpus order,
+    codes bit-identical to the plain residual encode, norms
+    ||centroid + recon||^2; a packed build holds the packed codes."""
+    import reference_numpy as ref_np
+    from reductive_tpu.ops import pack_u4_codes
+
     key = jax.random.PRNGKey(55)
     x = clustered_data(key, n_clusters=8, per=100, d=16)
     coarse, pq = train_ivf_pq(key, x, 8, 4, 4, use_kernel=False,
@@ -833,19 +839,29 @@ def test_device_placement_bit_identical_unbounded():
     idx_h = build_ivf(coarse, pq, x, use_kernel=False, placement="host")
     idx_d = build_ivf(coarse, pq, x, use_kernel=False, placement="device",
                       batch=128)
-    np.testing.assert_array_equal(np.asarray(idx_d.cell_ids),
-                                  np.asarray(idx_h.cell_ids))
-    np.testing.assert_array_equal(np.asarray(idx_d.cell_codes),
-                                  np.asarray(idx_h.cell_codes))
-    np.testing.assert_array_equal(np.asarray(idx_d.cell_norms),
-                                  np.asarray(idx_h.cell_norms))
-    # Packed device build == packed host build.
-    idx_dp = build_ivf(coarse, pq, x, use_kernel=False, placement="device",
-                       packed=True)
-    idx_hp = build_ivf(coarse, pq, x, use_kernel=False, placement="host",
-                       packed=True)
-    np.testing.assert_array_equal(np.asarray(idx_dp.cell_codes),
-                                  np.asarray(idx_hp.cell_codes))
+    for f in ("cell_ids", "cell_codes", "cell_norms"):
+        np.testing.assert_array_equal(np.asarray(getattr(idx_d, f)),
+                                      np.asarray(getattr(idx_h, f)))
+    xn, cn = np.asarray(x, np.float64), np.asarray(coarse, np.float64)
+    near = np.argmin(ref_np.squared_euclidean_distance(xn, cn), axis=1)
+    counts = np.bincount(near, minlength=cn.shape[0])
+    ids = np.asarray(idx_d.cell_ids)
+    assert ids.shape == (cn.shape[0], counts.max())
+    for c in range(cn.shape[0]):
+        rows = np.nonzero(near == c)[0]
+        np.testing.assert_array_equal(ids[c, : len(rows)], rows)
+        assert (ids[c, len(rows):] == -1).all()
+        codes = pq.quantize_batch(x[rows] - coarse[c], use_kernel=False)
+        np.testing.assert_array_equal(
+            np.asarray(idx_d.cell_codes)[c, : len(rows)], np.asarray(codes))
+        full = np.asarray(coarse[c] + pq.reconstruct_batch(codes))
+        np.testing.assert_allclose(np.asarray(idx_d.cell_norms)[c, : len(rows)],
+                                   np.sum(full * full, axis=1), rtol=1e-5)
+    idx_dp = build_ivf(coarse, pq, x, use_kernel=False, packed=True)
+    np.testing.assert_array_equal(
+        np.asarray(idx_dp.cell_codes),
+        np.asarray(pack_u4_codes(idx_d.cell_codes.reshape(-1, pq.quantized_len)))
+        .reshape(idx_dp.cell_codes.shape))
 
     with pytest.raises(ValueError, match="placement"):
         build_ivf(coarse, pq, x, use_kernel=False, placement="gpu")
@@ -961,15 +977,14 @@ def test_ivf_add_fast_path_matches_host_path(monkeypatch):
                                   np.asarray(idx_host.cell_norms))
 
 
-def test_lut_probe_scoring_matches_decode_path(monkeypatch):
-    """The TPU LUT (union-of-cells ADC kernel) probe path returns the
-    same neighbors and distances as the exact decode path — including a
+def test_lut_probe_scoring_matches_decode_path(monkeypatch, interpret_kernels):
+    """The LUT (union-of-cells ADC kernel) probe path returns the same
+    neighbors and distances as the gather-decode path — including a
     multi-chunk union scan, dot metric, packed cells, and top_k padding
     past the probed candidate count."""
     from reductive_tpu import ivf as ivf_mod
     from reductive_tpu.ivf import _probe_and_score_lut
 
-    monkeypatch.setattr(ivf_mod, "_PROBE_LUT_INTERPRET", True)
     key = jax.random.PRNGKey(71)
     x = clustered_data(key, n_clusters=12, per=80, d=16)
     coarse, pq = train_ivf_pq(key, x, 12, 4, 4, use_kernel=False,
@@ -985,8 +1000,7 @@ def test_lut_probe_scoring_matches_decode_path(monkeypatch):
                                       use_kernel=False, metric=metric)
             d_lut, i_lut = _probe_and_score_lut(
                 queries, index.coarse_centroids, index.cell_codes,
-                index.cell_ids, index.cell_norms, index.pq, 4, 5,
-                3, metric)
+                index.cell_ids, index.cell_norms, index.pq, 4, 5, metric)
             np.testing.assert_array_equal(np.asarray(i_lut),
                                           np.asarray(i_ref))
             np.testing.assert_allclose(np.asarray(d_lut),
@@ -999,12 +1013,12 @@ def test_lut_probe_scoring_matches_decode_path(monkeypatch):
         jax.random.PRNGKey(73), (9, x.shape[1]))
     one = _probe_and_score_lut(
         queries, index.coarse_centroids, index.cell_codes, index.cell_ids,
-        index.cell_norms, index.pq, 6, 8, 3, "l2")
+        index.cell_norms, index.pq, 6, 8, "l2")
     monkeypatch.setattr(ivf_mod, "_PROBE_LUT_BUDGET",
                         4 * queries.shape[0] * index.capacity)  # 1 cell/chunk
     many = _probe_and_score_lut(
         queries, index.coarse_centroids, index.cell_codes, index.cell_ids,
-        index.cell_norms, index.pq, 6, 8, 3, "l2")
+        index.cell_norms, index.pq, 6, 8, "l2")
     np.testing.assert_array_equal(np.asarray(one[1]), np.asarray(many[1]))
     np.testing.assert_allclose(np.asarray(one[0]), np.asarray(many[0]),
                                rtol=1e-6)
@@ -1014,7 +1028,7 @@ def test_lut_probe_scoring_matches_decode_path(monkeypatch):
                       on_overflow="drop")
     d_pad, i_pad = _probe_and_score_lut(
         queries[:3], small.coarse_centroids, small.cell_codes,
-        small.cell_ids, small.cell_norms, small.pq, 1, 10, 3, "l2")
+        small.cell_ids, small.cell_norms, small.pq, 1, 10, "l2")
     assert d_pad.shape == (3, 10) and i_pad.shape == (3, 10)
     pad_mask = ~np.isfinite(np.asarray(d_pad))
     assert pad_mask.any()
@@ -1070,3 +1084,34 @@ def test_device_placement_bounded_respill():
         c = cell_of_row[r_]
         if counts[nearest[r_]] <= L:
             assert c == nearest[r_]
+
+
+@pytest.mark.parametrize("metric", ["l2", "dot"])
+def test_ivf_search_kernel_path_sharded(metric, interpret_kernels):
+    """ivf_search/ivf_search_sharded with use_kernel=True (the LUT path,
+    per shard under shard_map, padded cells masked out of the probes)
+    return the decode path's neighbors."""
+    from reductive_tpu.parallel import make_mesh
+
+    key = jax.random.PRNGKey(81)
+    x = clustered_data(key, n_clusters=13, per=40, d=16)
+    coarse, pq = train_ivf_pq(key, x, 13, 4, 4, use_kernel=False,
+                              train_sample=None)
+    index = build_ivf(coarse, pq, x, capacity="auto", use_kernel=False)
+    queries = x[::37][:6] + 0.05 * jax.random.normal(
+        jax.random.PRNGKey(82), (6, x.shape[1]))
+    d_ref, i_ref = ivf_search(index, queries, top_k=5, nprobe=3,
+                              use_kernel=False, metric=metric)
+    d_k, i_k = ivf_search(index, queries, top_k=5, nprobe=3,
+                          use_kernel=True, metric=metric)
+    np.testing.assert_array_equal(np.asarray(i_k), np.asarray(i_ref))
+    np.testing.assert_allclose(np.asarray(d_k), np.asarray(d_ref),
+                               rtol=2e-5, atol=2e-5)
+    mesh = make_mesh(devices=jax.devices()[:4])
+    d_sk, i_sk = ivf_search_sharded(index, queries, top_k=5, nprobe=3,
+                                    mesh=mesh, use_kernel=True, metric=metric)
+    d_sp, i_sp = ivf_search_sharded(index, queries, top_k=5, nprobe=3,
+                                    mesh=mesh, use_kernel=False, metric=metric)
+    np.testing.assert_array_equal(np.asarray(i_sk), np.asarray(i_sp))
+    np.testing.assert_allclose(np.asarray(d_sk), np.asarray(d_sp),
+                               rtol=2e-5, atol=2e-5)

@@ -3,7 +3,7 @@
 The sharded trainers are validated elsewhere on a single-process virtual
 mesh; this test exercises the actual ``jax.distributed`` wiring — two OS
 processes, a real coordinator, cross-process collectives (gloo on CPU) —
-the same topology a TPU pod uses (one process per host), minus the ICI.
+the same topology a multi-host deployment uses (one process per host).
 
 Each process holds one CPU device; the 2-device global mesh shards the
 instance matrix across processes, the psum'd centroid statistics cross

@@ -265,10 +265,9 @@ def test_u4_end_to_end_roundtrip():
 
 
 def test_stream_encode_bf16_transfer():
-    """transfer_dtype=bfloat16 halves the wire bytes; on the kernel path
-    codes are bit-identical (host and device bf16 casts round the same
-    way — checked via the interpret-mode kernel); the pipeline accepts
-    the cast end to end."""
+    """transfer_dtype=bfloat16 halves the wire bytes: the host cast
+    rounds exactly like a device cast, and the pipeline accepts the cast
+    end to end."""
     import jax.numpy as jnp
 
     from reductive_tpu import Pq
@@ -279,10 +278,7 @@ def test_stream_encode_bf16_transfer():
     pq = Pq(codebooks=jax.random.normal(kc, (m, k, ds), dtype=jnp.float32))
     x = np.asarray(jax.random.normal(kx, (n, m * ds), dtype=jnp.float32))
 
-    # The bit-identity claim reduces to: the host-side ml_dtypes cast
-    # rounds exactly like the device cast the kernel performs internally
-    # (CPU XLA cannot run the bf16 kernel dots; the full kernel identity
-    # is asserted on real TPU in the verification drive).
+    # The host-side ml_dtypes cast rounds exactly like the device cast.
     host_cast = x.astype(jnp.bfloat16)
     dev_cast = np.asarray(jnp.asarray(x).astype(jnp.bfloat16))
     np.testing.assert_array_equal(

@@ -200,27 +200,42 @@ def test_quantize_roundtrip_dtype_u16():
 
 
 def test_reconstruct_onehot_matches_gather():
-    # The two decode implementations are bit-identical (the one-hot matmul
-    # runs at precision="highest", exact for single-nonzero rows).
+    # The gather decode returns the codebook entries bit for bit (the
+    # one-hot matmul it replaced had to run at precision="highest" to be
+    # exact); checked against an explicit per-row numpy lookup.
     from reductive_tpu.pq import primitives
 
     key = jax.random.PRNGKey(9)
     kc, kq = jax.random.split(key)
     cb = jax.random.normal(kc, (5, 32, 6), dtype=jnp.float32)
     codes = jax.random.randint(kq, (100, 5), 0, 32, dtype=jnp.int32)
-    np.testing.assert_array_equal(
-        np.asarray(primitives.reconstruct_batch(cb, codes, method="gather")),
-        np.asarray(primitives.reconstruct_batch(cb, codes, method="onehot")),
+    got = np.asarray(primitives.reconstruct_batch(cb, codes.astype(jnp.uint8)))
+    cb_np, codes_np = np.asarray(cb), np.asarray(codes)
+    want = np.concatenate(
+        [cb_np[j][codes_np[:, j]] for j in range(cb_np.shape[0])], axis=1
     )
+    assert got.dtype == want.dtype
+    np.testing.assert_array_equal(got.view(np.uint32), want.view(np.uint32))
 
 
-def test_quantize_batch_kernel_method():
-    # The kernel fast path is exposed on the model API; in CPU tests Mosaic
-    # is unavailable, so just assert the routing raises cleanly on unknown
-    # methods and that "exact" is the default behavior.
+def test_quantize_batch_kernel_method(monkeypatch):
+    # The model API resolves its kernel choice through dispatch.use_kernel:
+    # the plain path by default on the CPU, the kernel when asked for.
+    from reductive_tpu.ops import assign
+
+    calls = []
+    monkeypatch.setattr(assign, "pq_encode",
+                        lambda cb, x, dtype: calls.append(x.shape) or
+                        jnp.zeros((x.shape[0], cb.shape[0]), dtype))
     pq = make_test_pq()
-    with pytest.raises(ValueError, match="unknown quantize method"):
-        pq.quantize_batch(ref_vectors(), method="nope")
+    np.testing.assert_array_equal(
+        pq.quantize_batch(ref_vectors(), dtype=jnp.int32), ref_quantizations())
+    pq.quantize_batch(ref_vectors(), use_kernel=False)
+    assert calls == []
+    pq.quantize_batch(ref_vectors(), use_kernel=True)
+    assert calls == [ref_vectors().shape]
+    with pytest.raises(TypeError):
+        pq.quantize_batch(ref_vectors(), method="kernel")
 
 
 def test_trait_style_training_surface():
@@ -299,24 +314,19 @@ def test_single_vector_into():
         reconstruct_into(pq, code, jnp.zeros((m * ds + 1,), jnp.float32))
 
 
-def test_quantize_batch_kernel_f32_method():
-    """Pq.quantize_batch(method="kernel-f32") routes through the exact
-    kernel mode; on random data it matches the einsum oracle."""
+def test_quantize_batch_kernel_f32_method(interpret_kernels):
+    """Pq.quantize_batch(use_kernel=True) routes through the encode kernel
+    (here interpreted); on random data it matches the einsum oracle, and
+    so does quantize_batch_into."""
     m, k, ds, n = 4, 16, 4, 200
     kc, kx = jax.random.split(jax.random.PRNGKey(9))
     pq = Pq(codebooks=jax.random.normal(kc, (m, k, ds), dtype=jnp.float32))
     x = jax.random.normal(kx, (n, m * ds), dtype=jnp.float32)
 
-    import unittest.mock as mock
+    codes = pq.quantize_batch(x, use_kernel=True)
+    exact = pq.quantize_batch(x, use_kernel=False)
+    np.testing.assert_array_equal(np.asarray(codes), np.asarray(exact))
+    from reductive_tpu.pq import quantize_batch_into
 
-    from reductive_tpu.ops import assign as assign_mod
-
-    real = assign_mod.pq_encode
-    with mock.patch(
-        "reductive_tpu.ops.assign.pq_encode",
-        lambda c, x, **kw: real(c, x, interpret=True, **kw),
-    ):
-        codes = pq.quantize_batch(x, method="kernel-f32")
-    exact = pq.quantize_batch(x)
-    agree = float(jnp.mean((codes == exact).astype(jnp.float32)))
-    assert agree > 0.995, agree
+    into = quantize_batch_into(pq, x, jnp.zeros((n, m), jnp.uint8), use_kernel=True)
+    np.testing.assert_array_equal(np.asarray(into), np.asarray(exact))

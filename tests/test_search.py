@@ -105,8 +105,8 @@ def test_search_validation():
 
 
 def test_adc_kernel_matches_einsum_scores():
-    """The fused multi-hot ADC kernel matches the einsum scorer: splits=3
-    to f32 summation order; splits=2 within ~2^-18 table error."""
+    """The ADC kernel sums the same f32 table entries as the einsum
+    scorer: equal up to f32 summation order."""
     from reductive_tpu.ops.adc import adc_scores_kernel
 
     m, k, ds, n, nq = 8, 32, 4, 700, 7
@@ -117,13 +117,36 @@ def test_adc_kernel_matches_einsum_scores():
 
     tables = adc_tables(pq, queries)
     ref = adc_scores(tables, codes, chunk_size=256)
-    got = adc_scores_kernel(tables, codes, splits=3, interpret=True)
+    got = adc_scores_kernel(tables, codes, interpret=True)
     np.testing.assert_allclose(np.asarray(got), np.asarray(ref), rtol=1e-5, atol=1e-4)
-    got2 = adc_scores_kernel(tables, codes, splits=2, interpret=True)
-    np.testing.assert_allclose(np.asarray(got2), np.asarray(ref), rtol=1e-4, atol=1e-2)
 
 
-def test_search_kernel_method_same_topk():
+@pytest.mark.parametrize("m,k,metric", [
+    (1, 16, "l2"), (1, 256, "dot"), (8, 16, "dot"), (8, 256, "l2"),
+    (16, 16, "l2"), (16, 256, "dot"), (24, 16, "dot"), (24, 256, "l2"),
+])
+def test_adc_kernel_matches_reference(m, k, metric):
+    """Kernel scores equal the host reference's distances to the
+    reconstructions (``tests/reference_numpy.py``) for m in {1, 8, 16,
+    24}, k in {16, 256}, both metrics, over a ragged corpus and query
+    count (neither a multiple of its block)."""
+    import reference_numpy as ref_np
+    from reductive_tpu.ops.adc import adc_scores_kernel
+
+    ds, n, nq = 4, 203, 5
+    kc, kx, kq = jax.random.split(jax.random.PRNGKey(m * 1000 + k), 3)
+    pq = Pq(codebooks=jax.random.normal(kc, (m, k, ds), dtype=jnp.float32))
+    codes = jax.random.randint(kx, (n, m), 0, k).astype(jnp.uint8)
+    queries = jax.random.normal(kq, (nq, m * ds), dtype=jnp.float32)
+
+    got = adc_scores_kernel(adc_tables(pq, queries, metric=metric), codes,
+                            block_q=4, block_n=64, interpret=True)
+    want = ref_np.adc_distances(np.asarray(pq.codebooks), np.asarray(queries),
+                                np.asarray(codes), metric)
+    np.testing.assert_allclose(np.asarray(got), want, rtol=1e-4, atol=1e-3)
+
+
+def test_search_kernel_method_same_topk(interpret_kernels):
     """search(method='kernel') returns the same neighbors as the einsum
     path on well-separated data."""
     m, k, ds, n, nq = 4, 16, 8, 500, 5
@@ -133,20 +156,15 @@ def test_search_kernel_method_same_topk():
     codes = pq.quantize_batch(x)
     queries = jax.random.normal(kq, (nq, m * ds), dtype=jnp.float32)
 
-    # interpret-mode kernel on CPU: call the scorer directly + top_k
-    from reductive_tpu.ops.adc import adc_scores_kernel
-
-    tables = adc_tables(pq, queries)
-    scores_k = adc_scores_kernel(tables, codes, splits=3, interpret=True)
-    d_ref, i_ref = search(pq, queries, codes, top_k=5)
-    neg, idx = jax.lax.top_k(-scores_k, 5)
-    np.testing.assert_array_equal(np.asarray(idx), np.asarray(i_ref))
-    np.testing.assert_allclose(np.asarray(-neg), np.asarray(d_ref), rtol=1e-5, atol=1e-4)
+    d_k, i_k = search(pq, queries, codes, top_k=5, method="kernel")
+    d_ref, i_ref = search(pq, queries, codes, top_k=5, method="einsum")
+    np.testing.assert_array_equal(np.asarray(i_k), np.asarray(i_ref))
+    np.testing.assert_allclose(np.asarray(d_k), np.asarray(d_ref), rtol=1e-5, atol=1e-4)
 
 
-def test_search_kernel_auto_batches_large_query_sets():
-    """method='kernel' transparently batches query sets beyond the VMEM
-    cap; results match the einsum path per query."""
+def test_search_kernel_auto_batches_large_query_sets(interpret_kernels):
+    """method='kernel' takes any query count in one call (the query axis
+    is a grid axis); results match the einsum path per query."""
     m, k, ds, n, nq = 2, 8, 4, 300, 300
     kc, kx, kq = jax.random.split(jax.random.PRNGKey(8), 3)
     pq = Pq(codebooks=jax.random.normal(kc, (m, k, ds), dtype=jnp.float32))
@@ -154,28 +172,8 @@ def test_search_kernel_auto_batches_large_query_sets():
     codes = pq.quantize_batch(x)
     queries = jax.random.normal(kq, (nq, m * ds), dtype=jnp.float32)
 
-    import unittest.mock as mock
-    from reductive_tpu.ops.adc import adc_scores_kernel
-    from reductive_tpu.search import adc_scores
-
-    # On CPU, reroute the kernel scorer to the einsum scorer (interpret
-    # mode is too slow for 2x300 queries); the point under test is the
-    # host-side query batching in search().
-    from reductive_tpu.search import _search_jit
-
-    try:
-        with mock.patch(
-            "reductive_tpu.ops.adc.adc_scores_kernel",
-            lambda tables, codes, splits, **kw: adc_scores(
-                tables, codes, chunk_size=128
-            ),
-        ):
-            d_k, i_k = search(pq, queries, codes, top_k=5, method="kernel")
-    finally:
-        # The mocked scorer was traced into the jit cache for
-        # method="kernel"; drop it so later calls get the real kernel.
-        _search_jit.clear_cache()
-    d_e, i_e = search(pq, queries, codes, top_k=5)
+    d_k, i_k = search(pq, queries, codes, top_k=5, method="kernel")
+    d_e, i_e = search(pq, queries, codes, top_k=5, method="einsum")
     np.testing.assert_array_equal(np.asarray(i_k), np.asarray(i_e))
     np.testing.assert_allclose(np.asarray(d_k), np.asarray(d_e), rtol=1e-5)
 
@@ -194,31 +192,6 @@ def test_search_streamed_matches_full():
     d_str, i_str = search(pq, queries, codes, top_k=7, stream_chunk=256)
     np.testing.assert_array_equal(np.asarray(i_str), np.asarray(i_full))
     np.testing.assert_allclose(np.asarray(d_str), np.asarray(d_full), rtol=1e-6)
-
-
-def test_adc_kernel_int8_mode():
-    """8-bit-LUT ADC (per-query symmetric table quantization): scores
-    within ~1% and near-identical rankings."""
-    from reductive_tpu.ops.adc import adc_scores_kernel
-
-    m, k, ds, n, nq = 8, 32, 4, 700, 7
-    kc, kx, kq = jax.random.split(jax.random.PRNGKey(5), 3)
-    pq = Pq(codebooks=jax.random.normal(kc, (m, k, ds), dtype=jnp.float32))
-    codes = jax.random.randint(kx, (n, m), 0, k).astype(jnp.uint8)
-    queries = jax.random.normal(kq, (nq, m * ds), dtype=jnp.float32)
-
-    tables = adc_tables(pq, queries)
-    ref = adc_scores(tables, codes, chunk_size=256)
-    got = adc_scores_kernel(tables, codes, splits="int8", interpret=True)
-    rel = float(jnp.max(jnp.abs(got - ref)) / jnp.max(jnp.abs(ref)))
-    assert rel < 0.02
-    _, i_ref = jax.lax.top_k(-ref, 5)
-    _, i_got = jax.lax.top_k(-got, 5)
-    overlap = np.mean([
-        len(set(np.asarray(i_ref[q]).tolist()) & set(np.asarray(i_got[q]).tolist())) / 5
-        for q in range(nq)
-    ])
-    assert overlap > 0.85
 
 
 def test_search_auto_streams_large_corpora(monkeypatch):
@@ -274,8 +247,8 @@ def test_packed_u4_roundtrip_and_native_layout():
         pack_u4_codes(codes[:, :7])
 
 
-@pytest.mark.parametrize("splits", [2, "int8"])
-def test_adc_kernel_packed_u4(splits):
+@pytest.mark.parametrize("metric", ["l2", "dot"])
+def test_adc_kernel_packed_u4(metric):
     """Packed-u4 scoring equals unpacked scoring exactly (same tables,
     same kernel arithmetic — only the code layout differs)."""
     from reductive_tpu.ops import pack_u4_codes
@@ -287,12 +260,12 @@ def test_adc_kernel_packed_u4(splits):
     codes = jax.random.randint(kx, (n, m), 0, k).astype(jnp.uint8)
     queries = jax.random.normal(kq, (nq, m * ds), dtype=jnp.float32)
 
-    tables = adc_tables(pq, queries)
-    ref = adc_scores_kernel(tables, codes, splits=splits, interpret=True)
+    tables = adc_tables(pq, queries, metric=metric)
+    ref = adc_scores_kernel(tables, codes, interpret=True)
     got = adc_scores_kernel(
-        tables, pack_u4_codes(codes), splits=splits, packed=True, interpret=True
+        tables, pack_u4_codes(codes), packed=True, interpret=True
     )
-    np.testing.assert_allclose(np.asarray(got), np.asarray(ref), rtol=1e-6, atol=1e-5)
+    np.testing.assert_array_equal(np.asarray(got), np.asarray(ref))
 
     with pytest.raises(ValueError, match="k <= 16"):
         big = Pq(codebooks=jax.random.normal(kc, (2, 32, 4), dtype=jnp.float32))
@@ -300,11 +273,10 @@ def test_adc_kernel_packed_u4(splits):
         adc_scores_kernel(t2, jnp.zeros((4, 1), jnp.uint8), packed=True, interpret=True)
 
 
-def test_search_packed_u4_end_to_end():
+def test_search_packed_u4_end_to_end(interpret_kernels):
     """search(packed=True) returns the same neighbors as the unpacked
     kernel search, in dense and streamed modes."""
     from reductive_tpu.ops import pack_u4_codes
-    from reductive_tpu.search import search
 
     m, k, ds, n, nq = 8, 16, 4, 1200, 4
     kc, kx, kq = jax.random.split(jax.random.PRNGKey(13), 3)
@@ -313,30 +285,14 @@ def test_search_packed_u4_end_to_end():
     queries = jax.random.normal(kq, (nq, m * ds), dtype=jnp.float32)
     packed = pack_u4_codes(codes)
 
-    import unittest.mock as mock
-
-    from reductive_tpu.ops.adc import adc_scores_kernel
-    from reductive_tpu.search import _search_jit, _search_streamed_jit
-
-    # Interpret-mode kernels on the CPU test platform.
-    try:
-        with mock.patch(
-            "reductive_tpu.ops.adc.adc_scores_kernel",
-            lambda t, c, splits, packed=False: adc_scores_kernel(
-                t, c, splits=splits, packed=packed, interpret=True
-            ),
-        ):
-            d_ref, i_ref = search(pq, queries, codes, top_k=7, method="kernel")
-            d_pk, i_pk = search(
-                pq, queries, packed, top_k=7, method="kernel", packed=True
-            )
-            d_st, i_st = search(
-                pq, queries, packed, top_k=7, method="kernel", packed=True,
-                stream_chunk=256,
-            )
-    finally:
-        _search_jit.clear_cache()
-        _search_streamed_jit.clear_cache()
+    d_ref, i_ref = search(pq, queries, codes, top_k=7, method="kernel")
+    d_pk, i_pk = search(
+        pq, queries, packed, top_k=7, method="kernel", packed=True
+    )
+    d_st, i_st = search(
+        pq, queries, packed, top_k=7, method="kernel", packed=True,
+        stream_chunk=256,
+    )
     np.testing.assert_array_equal(np.asarray(i_ref), np.asarray(i_pk))
     np.testing.assert_array_equal(np.asarray(i_ref), np.asarray(i_st))
     np.testing.assert_allclose(np.asarray(d_ref), np.asarray(d_pk), rtol=1e-5, atol=1e-5)
@@ -482,8 +438,8 @@ def test_dot_metric_tables_match_bruteforce_ip(projection):
                                rtol=2e-4, atol=2e-4)
 
 
-@pytest.mark.parametrize("method", ["einsum", "decode"])
-def test_search_dot_metric_topk(method):
+@pytest.mark.parametrize("method", ["einsum", "decode", "kernel"])
+def test_search_dot_metric_topk(method, interpret_kernels):
     # Every scoring method ranks by descending inner product under
     # metric="dot" and agrees with the brute-force MIPS answer.
     key = jax.random.PRNGKey(12)
@@ -499,7 +455,7 @@ def test_search_dot_metric_topk(method):
     exp_idx = np.asarray(jax.lax.top_k(ip, 10)[1])
 
     dist, idx = search(pq, queries, codes, top_k=10, method=method,
-                       splits=2, metric="dot")
+                       metric="dot")
     # Scores ascend (negated IP) and the sets agree (ties can permute).
     assert np.all(np.diff(np.asarray(dist), axis=1) >= -1e-5)
     for q in range(queries.shape[0]):
@@ -508,8 +464,7 @@ def test_search_dot_metric_topk(method):
 
 
 def test_adc_kernel_dot_metric_interpret():
-    # The fused kernel consumes dot-metric tables unchanged (bf16 splits
-    # and the int8 affine LUT both handle negative table entries).
+    # The kernel consumes dot-metric tables (negative entries) unchanged.
     from reductive_tpu.ops.adc import adc_scores_kernel
 
     key = jax.random.PRNGKey(18)
@@ -522,15 +477,9 @@ def test_adc_kernel_dot_metric_interpret():
 
     tables = adc_tables(pq, queries, metric="dot")
     ref = adc_scores(tables, codes)
-    got = adc_scores_kernel(tables, codes, splits=3, interpret=True)
+    got = adc_scores_kernel(tables, codes, interpret=True)
     np.testing.assert_allclose(np.asarray(got), np.asarray(ref),
                                rtol=1e-5, atol=1e-4)
-    got8 = adc_scores_kernel(tables, codes, splits="int8", interpret=True)
-    # int8 LUT ranking survives: top-10 overlap vs exact tables.
-    for q in range(queries.shape[0]):
-        want = set(np.asarray(jax.lax.top_k(-ref, 10)[1])[q].tolist())
-        have = set(np.asarray(jax.lax.top_k(-got8, 10)[1])[q].tolist())
-        assert len(want & have) >= 8, (q, want, have)
 
 
 def test_search_dot_metric_refine_exact_mips():
@@ -733,12 +682,15 @@ def test_search_sharded_auto_streams(monkeypatch):
 
 
 def test_search_method_auto_resolution(monkeypatch):
-    """``method="auto"`` picks the fused kernel exactly when the backend
-    is TPU and the codes are u8/packed; everywhere else it must produce
+    """``method="auto"`` picks the ADC kernel exactly when the backend is
+    a GPU and the codes are u8/packed; everywhere else it must produce
     the einsum scorer's results (here: CPU -> einsum, bit-identical to an
-    explicit einsum call; and a fake-TPU backend with u16 codes must
+    explicit einsum call; and a fake-GPU backend with u16 codes must
     also stay on einsum rather than handing wide codes to the kernel)."""
-    import reductive_tpu.search as search_mod
+    import functools
+
+    import reductive_tpu.dispatch as dispatch_mod
+    import reductive_tpu.ops.adc as adc_mod
 
     key = jax.random.PRNGKey(11)
     kq, kx, kpq = jax.random.split(key, 3)
@@ -754,24 +706,41 @@ def test_search_method_auto_resolution(monkeypatch):
     np.testing.assert_array_equal(np.asarray(i_auto), np.asarray(i_ein))
     np.testing.assert_array_equal(np.asarray(d_auto), np.asarray(d_ein))
 
-    # Fake a TPU backend: u8 codes must route to the kernel (observed via
-    # the kernel's VMEM query batcher being consulted), u16 must not.
+    # Fake a GPU backend: u8 codes must route to the kernel (observed via
+    # a recording interpret-mode kernel), u16 must not.
     calls = []
-    monkeypatch.setattr(search_mod.jax, "default_backend", lambda: "tpu")
-    import reductive_tpu.ops.adc as adc_mod
-
-    real_mqb = adc_mod.max_query_batch
+    real = adc_mod.adc_scores_kernel
+    monkeypatch.setattr(dispatch_mod.jax, "default_backend", lambda: "gpu")
     monkeypatch.setattr(
-        adc_mod, "max_query_batch",
-        lambda *a, **k: calls.append(a) or real_mqb(*a, **k),
+        adc_mod, "adc_scores_kernel",
+        lambda *a, **k: calls.append(a) or functools.partial(
+            real, interpret=True)(*a, **k),
     )
-    try:
-        search(pq, queries, codes, top_k=7)
-    except Exception:
-        pass  # the kernel itself cannot run on CPU; routing is the test
-    assert calls, "auto on TPU with u8 codes must resolve to the kernel"
+    d_k, i_k = search(pq, queries, codes, top_k=6)
+    assert calls, "auto on GPU with u8 codes must resolve to the kernel"
+    np.testing.assert_array_equal(np.asarray(i_k), np.asarray(i_ein)[:, :6])
 
     calls.clear()
     codes16 = codes.astype(jnp.uint16)
     search(pq, queries, codes16, top_k=7)  # einsum handles u16 fine
     assert not calls, "auto must not hand non-u8 codes to the kernel"
+
+
+@pytest.mark.gpu
+def test_adc_kernel_compiled_on_gpu(gpu):
+    """The compiled ADC kernel at a real width (100 queries x 262,144
+    codes, m=16, k=256) equals the einsum scorer up to f32 summation
+    order, unpacked and packed-u4."""
+    from reductive_tpu.ops import pack_u4_codes
+    from reductive_tpu.ops.adc import adc_scores_kernel
+
+    for k, packed in ((256, False), (16, True)):
+        kc, kx, kq = jax.random.split(jax.random.PRNGKey(k), 3)
+        pq = Pq(codebooks=jax.random.normal(kc, (16, k, 8), dtype=jnp.float32))
+        codes = jax.random.randint(kx, (262_144, 16), 0, k).astype(jnp.uint8)
+        tables = adc_tables(pq, jax.random.normal(kq, (100, 128), jnp.float32))
+        got = adc_scores_kernel(tables, pack_u4_codes(codes) if packed else codes,
+                                packed=packed)
+        want = adc_scores(tables, codes)
+        np.testing.assert_allclose(np.asarray(got), np.asarray(want),
+                                   rtol=1e-5, atol=1e-3)

@@ -1,10 +1,10 @@
-"""Tests for the chunked / fused-statistics training path.
+"""Tests for the chunked training path.
 
 The in-memory Lloyd's iteration (``kmeans.kmeans_iteration`` vmapped over
-the subquantizer axis) is the correctness oracle; the chunked einsum path
-must reproduce it to float tolerance, and the fused Pallas stats kernel
-(interpreter mode on CPU) must agree exactly with the encode kernel's
-assignments and to float tolerance on the sums.
+the subquantizer axis) is the correctness oracle; the chunked path must
+reproduce it to float tolerance.  Its statistics are a sorted segment
+sum of each subvector into its (subquantizer, centroid) segment; they
+must equal the one-hot matmul statistics they replaced.
 """
 
 import numpy as np
@@ -15,24 +15,36 @@ import jax.numpy as jnp
 
 from reductive_tpu import train_pq
 from reductive_tpu.kmeans import kmeans_iteration
-from reductive_tpu.ops import pq_encode
-from reductive_tpu.ops.stats import pq_assign_stats
 from reductive_tpu.pq import primitives
-from reductive_tpu.pq.train import lloyd_iteration_chunked, train_pq_chunked
+from reductive_tpu.pq.train import (
+    _chunk_stats,
+    lloyd_iteration_chunked,
+    sorted_segment_sum,
+    train_pq_chunked,
+)
+
+
+def onehot_stats(cb, x, codes):
+    """The one-hot matmul statistics: ``onehot(codes)^T @ x`` per
+    subquantizer, and the one-hot column sums."""
+    n = x.shape[0]
+    m, k, ds = cb.shape
+    onehot = jax.nn.one_hot(codes.T, k, dtype=jnp.float32)
+    xs_m = jnp.moveaxis(x.reshape(n, m, ds), 1, 0)
+    sums = jnp.einsum("mck,mcs->mks", onehot, xs_m, precision="highest")
+    return sums, jnp.sum(onehot, axis=1)
 
 
 @pytest.mark.parametrize("n,m,k,ds", [(1000, 4, 8, 4), (257, 2, 3, 5)])
-def test_stats_kernel_matches_einsum(n, m, k, ds):
+def test_sorted_segment_stats_match_onehot(n, m, k, ds):
+    """Sorted-segment-sum statistics equal the one-hot matmul statistics."""
     kx, kc = jax.random.split(jax.random.PRNGKey(0))
     x = jax.random.normal(kx, (n, m * ds), dtype=jnp.float32)
     cb = jax.random.normal(kc, (m, k, ds), dtype=jnp.float32)
 
-    sums, counts = pq_assign_stats(cb, x, interpret=True)
+    sums, counts = _chunk_stats(cb, x, use_kernel=False)
     codes = primitives.quantize_batch(cb, x, dtype=jnp.int32)
-    onehot = jax.nn.one_hot(codes.T, k, dtype=jnp.float32)
-    xs_m = jnp.moveaxis(x.reshape(n, m, ds), 1, 0)
-    ref_sums = jnp.einsum("mck,mcs->mks", onehot, xs_m, precision="highest")
-    ref_counts = jnp.sum(onehot, axis=1)
+    ref_sums, ref_counts = onehot_stats(cb, x, codes)
 
     assert float(jnp.sum(counts)) == n * m
     np.testing.assert_array_equal(np.asarray(counts), np.asarray(ref_counts))
@@ -41,27 +53,45 @@ def test_stats_kernel_matches_einsum(n, m, k, ds):
     )
 
 
-def test_stats_kernel_consistent_with_encode_kernel():
-    """At shapes where near-ties can flip against the einsum oracle, the
-    stats kernel must still agree *exactly* with the encode kernel — both
-    compute identical packed keys."""
+def test_chunk_stats_follow_encode_kernel_codes(interpret_kernels):
+    """On the kernel path the statistics are those of the encode
+    kernel's assignments, exactly."""
+    from reductive_tpu.ops import assign
+
     n, m, k, ds = 2000, 8, 64, 4
     kx, kc = jax.random.split(jax.random.PRNGKey(1))
     x = jax.random.normal(kx, (n, m * ds), dtype=jnp.float32)
     cb = jax.random.normal(kc, (m, k, ds), dtype=jnp.float32)
 
-    sums, counts = pq_assign_stats(cb, x, interpret=True)
-    codes = pq_encode(cb, x, dtype=jnp.int32, compute_dtype=jnp.float32, interpret=True)
-    onehot = jax.nn.one_hot(codes.T, k, dtype=jnp.float32)
-    xs_m = jnp.moveaxis(x.reshape(n, m, ds), 1, 0)
-    ref_sums = jnp.einsum("mck,mcs->mks", onehot, xs_m, precision="highest")
+    sums, counts = _chunk_stats(cb, x, use_kernel=True)
+    codes = assign.pq_encode(cb, x, dtype=jnp.int32)
+    ref_sums, ref_counts = onehot_stats(cb, x, codes)
 
-    np.testing.assert_array_equal(
-        np.asarray(counts), np.asarray(jnp.sum(onehot, axis=1))
-    )
+    np.testing.assert_array_equal(np.asarray(counts), np.asarray(ref_counts))
     np.testing.assert_allclose(
         np.asarray(sums), np.asarray(ref_sums), rtol=1e-5, atol=1e-4
     )
+
+
+@pytest.mark.parametrize("n,segments,w", [(1, 3, 2), (500, 7, 3), (4000, 600, 9)])
+def test_sorted_segment_sum_matches_numpy(n, segments, w):
+    """Per-segment sums (in f64 numpy, f32 tolerance) and exact counts;
+    segments no row falls in sum to zero; repeated calls give the same
+    bits."""
+    rng = np.random.default_rng(n)
+    values = rng.standard_normal((n, w)).astype(np.float32)
+    segment = rng.integers(0, max(1, segments - 2), size=n).astype(np.int32)
+    f = jax.jit(sorted_segment_sum, static_argnums=2)
+    sums, counts = f(jnp.asarray(values), jnp.asarray(segment), segments)
+    want = np.zeros((segments, w))
+    np.add.at(want, segment, values.astype(np.float64))
+    np.testing.assert_array_equal(np.asarray(counts),
+                                  np.bincount(segment, minlength=segments))
+    np.testing.assert_allclose(np.asarray(sums), want, rtol=1e-5, atol=1e-5)
+    assert not np.asarray(sums)[segments - 2:].any()
+    again, _ = f(jnp.asarray(values), jnp.asarray(segment), segments)
+    np.testing.assert_array_equal(np.asarray(again).view(np.uint32),
+                                  np.asarray(sums).view(np.uint32))
 
 
 @pytest.mark.parametrize("chunk", [256, 1000, 4096])
@@ -160,7 +190,6 @@ def test_chunked_stats_exact_for_bf16_corpus():
 
     sums, counts = assign_stats_streamed(
         xb, cb.astype(jnp.bfloat16), chunk=500, use_kernel=False,
-        compute_dtype=jnp.bfloat16,
     )
     assert sums.dtype == jnp.float32 and counts.dtype == jnp.float32
     # Counts are exact: integral and summing to n per subquantizer.
@@ -209,38 +238,19 @@ def test_search_rejects_unknown_method():
                method="kernels")
 
 
-def test_stats_kernel_m_split_for_large_codebooks(monkeypatch):
-    """When the (m*kp, d) accumulator outgrows VMEM (large k*d), the stats
-    kernel recursively splits the subquantizer axis; statistics stay
-    exact.  The tiling chooser is forced to fail above m=2 so the split
-    path runs deterministically regardless of the real VMEM budget."""
-    import reductive_tpu.ops.stats as stats_mod
-
-    m, k, ds, n = 4, 2048, 16, 400
-    orig = stats_mod._choose_stats_tiling
-
-    def forced(m_, kp_, d_, itemsize, **kw):
-        if m_ > 2:
-            raise ValueError("forced split for test")
-        return orig(m_, kp_, d_, itemsize, **kw)
-
-    monkeypatch.setattr(stats_mod, "_choose_stats_tiling", forced)
-    pq_assign_stats.clear_cache()  # drop traces using the real chooser
+def test_lloyd_step_kernel_equals_plain_large_k(interpret_kernels):
+    """A large codebook (k=2048, several centroid tiles in the encode
+    kernel): a Lloyd's step on the kernel path equals the plain path."""
+    m, k, ds, n = 2, 2048, 16, 400
     x = jax.random.normal(jax.random.PRNGKey(0), (n, m * ds), dtype=jnp.float32)
     cb = jax.random.normal(jax.random.PRNGKey(1), (m, k, ds), dtype=jnp.float32)
-    sums, counts = pq_assign_stats(cb, x, interpret=True)
-    pq_assign_stats.clear_cache()  # don't leak forced-chooser traces
-    codes = primitives.quantize_batch(cb, x, dtype=jnp.int32)
-    onehot = jax.nn.one_hot(codes.T, k, dtype=jnp.float32)
-    xs_m = jnp.moveaxis(x.reshape(n, m, ds), 1, 0)
-    np.testing.assert_array_equal(
-        np.asarray(counts), np.asarray(jnp.sum(onehot, axis=1))
-    )
-    np.testing.assert_allclose(
-        np.asarray(sums),
-        np.asarray(jnp.einsum("mck,mcs->mks", onehot, xs_m, precision="highest")),
-        rtol=1e-5, atol=1e-4,
-    )
+    sumsq = jnp.sum(x.reshape(n, m, ds) ** 2, axis=(0, 2))
+    cb_k, loss_k = lloyd_iteration_chunked(x, cb, sumsq, chunk=128,
+                                           use_kernel=True)
+    cb_p, loss_p = lloyd_iteration_chunked(x, cb, sumsq, chunk=128,
+                                           use_kernel=False)
+    np.testing.assert_array_equal(np.asarray(cb_k), np.asarray(cb_p))
+    np.testing.assert_array_equal(np.asarray(loss_k), np.asarray(loss_p))
 
 
 def test_train_pq_chunked_checkpoint_hook(tmp_path, caplog):
@@ -295,9 +305,8 @@ def test_train_pq_chunked_resume_from_checkpoint(tmp_path):
         key, x, 4, 3, 2, chunk=32, use_kernel=False,
         initial_model=rio.load(path),
     )
-    np.testing.assert_allclose(
-        np.asarray(resumed.codebooks), np.asarray(straight.codebooks),
-        rtol=1e-6, atol=1e-6,
+    np.testing.assert_array_equal(
+        np.asarray(resumed.codebooks), np.asarray(straight.codebooks)
     )
 
     import pytest
